@@ -3,25 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and drives
-the ingest-and-search path, failing (non-zero exit, no result line) on any
-failed phase:
+Builds the port's CUDA kernels from the sources in this checkout and drives
+the ingest-and-search path of every flat tier, failing (non-zero exit, no
+result line) on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
-  1. the fused score+top-k kernel (K1, csrc/fused_topk.cu) against its
-     plain PyTorch version at the flat index's shapes (1,048,576 x 384 rows,
-     f32 and bf16, Q in {1, 32, 128}, the three exact/keep2 modes the float
-     tiers use), with both times;
+  1. each scan kernel against its plain PyTorch version at the flat
+     index's shapes (1,048,576 x 384 rows, count = N - 12345, ~1% dead
+     rows, Q in {1, 32, 128}), with kernel, bank-only and plain times:
+     K1 (csrc/fused_topk.cu) on f32 and bf16 rows in the three exact/keep2
+     modes the float tiers use; K2 (int8 rows, int8 queries, S = 512,
+     keep2 off/on) and K4 in shift mode (int4 rows, S = 1024 and 2048,
+     keep2 off/on), both bit-equal to their plain versions; K3 (int8 rows,
+     bf16 queries, S = 1024) and K4 in deferred mode, within tolerance;
   2. the HTTP server (`python -m memex_tpu_torch serve`) at full
-     all-MiniLM-L12-v2 width with seeded random weights: ~200 documents
-     ingested, searches from 32 concurrent clients, proof through the
-     server's launch counter that the searches ran the kernel;
-  3. a 1,048,576-row float32 index: retrieval checks against a float32
-     brute-force oracle, then the fused text-query path timed at Q in
-     {1, 32, 128}.
+     all-MiniLM-L12-v2 width with seeded random weights, once on a float32
+     store and once on an int8+refine store: ~200 documents ingested,
+     searches from 32 concurrent clients, proof through the server's
+     launch counters that the searches ran K1, then K2;
+  3. 1,048,576-row indexes of each tier, one at a time (float32, int8,
+     int8 with bf16 queries, int8+refine, int4, int4+refine): retrieval
+     checks against a float32 brute-force oracle, proof that each search
+     launched its tier's kernel, and the fused text-query path timed at
+     Q in {1, 32, 128} on the float32, int8 and int4 stores.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+the kernels with their launch counts (from the phase-2 and phase-3 runs
+of their tiers), errors and times.
 """
 
 from __future__ import annotations
@@ -44,11 +52,24 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = 1 << 20
 DIM = 384
-# Kernel vs plain version: both sum 384 products of inputs in [-1, 1] in
-# float32, in different orders; the difference is a few float32 ulps of
-# a score <= 1 (~1e-6 observed), so 2e-5 is loose for the arithmetic and
-# tight against any real indexing or masking fault.
+# Float kernels (K1, K3, K4's rerank) vs plain version: both sum 384
+# products in float32, in different orders; the difference is a few
+# float32 ulps of a score <= 1 (~1e-6 observed), so 2e-5 is loose for the
+# arithmetic and tight against any real indexing or masking fault.
 SCORE_TOL = 2e-5
+# The kernels' TPU originals (memex_tpu/ops/fused_topk.py).
+REPLACES = {
+    "fused_topk": "memex_tpu/ops/fused_topk.py:80",
+    "fused_topk_int8q": "memex_tpu/ops/fused_topk.py:412",
+    "fused_topk_int8": "memex_tpu/ops/fused_topk.py:274",
+    "fused_topk_int4q": "memex_tpu/ops/fused_topk.py:578",
+}
+SOURCES = {
+    "fused_topk": "memex_tpu_torch/csrc/fused_topk.cu",
+    "fused_topk_int8q": "memex_tpu_torch/csrc/fused_topk_int8.cu",
+    "fused_topk_int8": "memex_tpu_torch/csrc/fused_topk_int8.cu",
+    "fused_topk_int4q": "memex_tpu_torch/csrc/fused_topk_int4.cu",
+}
 
 
 class SmokeFailure(Exception):
@@ -86,6 +107,11 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def plain_ms(fn) -> float:
+    """The plain versions take 40-200 ms a call: 5 runs after 1 warmup."""
+    return cuda_ms(fn, runs=5, warmup=1)
+
+
 def unit_rows(n: int, d: int, gen, device):
     import torch
 
@@ -95,15 +121,13 @@ def unit_rows(n: int, d: int, gen, device):
 
 # -- phase 1 -------------------------------------------------------------------
 
-def compare_topk(kv, ki, pv, pi, db, q, exact: bool) -> tuple[float, int]:
+def compare_topk(kv, ki, pv, pi, score_of) -> tuple[float, int]:
     """Kernel (kv, ki) vs plain (pv, pi) top lists of one call. Values must
     agree within SCORE_TOL position by position; an index may differ only
     where the two lists hold near-equal values, and then the kernel's row
-    must really score what the kernel says. Returns (max abs error,
-    number of differing positions)."""
+    must really score what the kernel says: score_of(query_idx, rows).
+    Returns (max abs error, number of differing positions)."""
     import torch
-
-    from memex_tpu_torch.ops.fused_topk import scores_f32
 
     err = (kv - pv).abs().max().item()
     check(err <= SCORE_TOL, f"values differ by {err:.3e} > {SCORE_TOL}")
@@ -111,11 +135,20 @@ def compare_topk(kv, ki, pv, pi, db, q, exact: bool) -> tuple[float, int]:
     n_diff = int(diff.sum().item())
     if n_diff:
         qi, pos = torch.nonzero(diff, as_tuple=True)
-        rows = ki[qi, pos].long()
-        true = scores_f32(q[qi][:, None, :], db[rows][:, :, None].float(), exact)[:, 0, 0]
-        gap = (true - kv[qi, pos]).abs().max().item()
+        gap = (score_of(qi, ki[qi, pos].long()) - kv[qi, pos]).abs().max().item()
         check(gap <= SCORE_TOL, f"kernel index scores {gap:.3e} off its value")
     return err, n_diff
+
+
+def bit_equal(a: list, b: list, what: str) -> None:
+    import torch
+
+    for x, y in zip(a, b, strict=True):
+        check(torch.equal(x, y), f"{what}: kernel and plain version differ")
+
+
+def gbps(n_bytes: int, ms: float) -> str:
+    return f"{n_bytes / (ms * 1e-3) / 1e9:.1f}"
 
 
 def phase1(label: str, seed: int) -> dict:
@@ -133,32 +166,125 @@ def phase1(label: str, seed: int) -> dict:
     db32 = unit_rows(N_ROWS, DIM, gen, dev)
     alive = (torch.rand(N_ROWS, generator=gen, device=dev) > 0.01).float()
     count = N_ROWS - 12345
+    out = {}
     worst, main_ms, main_plain = 0.0, None, None
     for dtype in (torch.float32, torch.bfloat16):
         db = db32.to(dtype)
         for exact, keep2 in ((False, False), (False, True), (True, True)):
+            full = exact and dtype == torch.float32
             for Q in (1, 32, 128):
                 q = unit_rows(Q, DIM, gen, dev)
                 kw = dict(count=count, alive=alive, exact=exact, keep2=keep2)
                 kv, ki = ft.fused_score_topk(db, q, 128, **kw)
                 pv, pi = ft.fused_score_topk_reference(db, q, 128, **kw)
                 torch.cuda.synchronize()
-                err, n_diff = compare_topk(kv, ki, pv, pi, db, q,
-                                           exact and dtype == torch.float32)
+                err, n_diff = compare_topk(kv, ki, pv, pi, lambda qi, rows: ft.scores_f32(
+                    q[qi][:, None, :], db[rows][:, :, None].float(), full)[:, 0, 0])
                 worst = max(worst, err)
                 ms = cuda_ms(lambda: ft.fused_score_topk(db, q, 128, **kw))
                 bank_ms = cuda_ms(lambda: ft.fused_score_bank_cuda(db, q, **kw))
-                plain_ms = cuda_ms(lambda: ft.fused_score_topk_reference(db, q, 128, **kw))
+                p_ms = plain_ms(lambda: ft.fused_score_topk_reference(db, q, 128, **kw))
                 name = "f32" if dtype == torch.float32 else "bf16"
                 print(f"[{label}] phase1 K1 rows={name} exact={exact} keep2={keep2} Q={Q} "
                       f"max_abs_err={err:.3e} idx_diff={n_diff} kernel_ms={ms:.4f} "
-                      f"(bank only {bank_ms:.4f}) plain_ms={plain_ms:.4f}", flush=True)
+                      f"(bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} row_read_GBps="
+                      f"{gbps(count * (db.element_size() * DIM + 4), bank_ms)}", flush=True)
                 if dtype == torch.float32 and not exact and not keep2 and Q == 32:
-                    main_ms, main_plain = ms, plain_ms
+                    main_ms, main_plain = ms, p_ms
         del db
-    del db32, alive
+    out["fused_topk"] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain}
+
+    # int8 codes of the same rows; int4 codes packed row-major as the
+    # index stores them (byte j = 16 * code[j + D/2] + code[j]).
+    codes, scales = ft.quantize_rows_int8(db32)
+    s4 = torch.clamp(db32.abs().amax(dim=1), min=1e-12) / 7.0
+    c4 = torch.clamp(torch.round(db32 / s4[:, None]), -7, 7).to(torch.int32)
+    packed = (c4[:, : DIM // 2] + 16 * c4[:, DIM // 2 :]).to(torch.int8).contiguous()
+    del db32, s4, c4
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain}
+    row8, row4 = count * (DIM + 8), count * (DIM // 2 + 8)  # codes + scale + alive
+
+    # K2: bit-equal to its plain version, bank and top list.
+    res = {}
+    for keep2 in (False, True):
+        for Q in (1, 32, 128):
+            q = unit_rows(Q, DIM, gen, dev)
+            q8, _ = ft.quantize_rows_int8(q)
+            kw = dict(count=count, alive=alive, banks=4, keep2=keep2)
+            bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw)
+            plain = ft.int8q_bank_reference(codes, scales, q8, **kw)
+            bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"K2 bank keep2={keep2} Q={Q}")
+            kv, ki = ft.fused_score_topk_int8q(codes, scales, q, 128, **kw)
+            pv, pi = ft.fused_score_topk_int8q_reference(codes, scales, q, 128, **kw)
+            bit_equal([kv, ki], [pv, pi], f"K2 top list keep2={keep2} Q={Q}")
+            ms = cuda_ms(lambda: ft.fused_score_topk_int8q(codes, scales, q, 128, **kw))
+            bank_ms = cuda_ms(lambda: ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw))
+            p_ms = plain_ms(lambda: ft.fused_score_topk_int8q_reference(codes, scales, q, 128,
+                                                                       **kw))
+            print(f"[{label}] phase1 K2 int8q S=512 keep2={keep2} Q={Q} bit_equal=True "
+                  f"kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} "
+                  f"row_read_GBps={gbps(row8, bank_ms)}", flush=True)
+            res[(keep2, Q)] = (ms, p_ms)
+    out["fused_topk_int8q"] = {"max_abs_err": 0.0, "ms": res[(False, 32)][0],
+                               "plain_ms": res[(False, 32)][1]}
+
+    # K3: K1's tolerance.
+    worst, res = 0.0, {}
+    for Q in (1, 32, 128):
+        q = unit_rows(Q, DIM, gen, dev)
+        kw = dict(count=count, alive=alive, banks=8)
+        kv, ki = ft.fused_score_topk_int8(codes, scales, q, 128, **kw)
+        pv, pi = ft.fused_score_topk_int8_reference(codes, scales, q, 128, **kw)
+        err, n_diff = compare_topk(kv, ki, pv, pi, lambda qi, rows: (
+            q[qi].bfloat16().float() * codes[rows].float()).sum(1) * scales[rows])
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: ft.fused_score_topk_int8(codes, scales, q, 128, **kw))
+        bank_ms = cuda_ms(lambda: ft.fused_score_bank_int8_cuda(codes, scales, q, **kw))
+        p_ms = plain_ms(lambda: ft.fused_score_topk_int8_reference(codes, scales, q, 128, **kw))
+        print(f"[{label}] phase1 K3 int8 S=1024 Q={Q} max_abs_err={err:.3e} idx_diff={n_diff} "
+              f"kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} "
+              f"row_read_GBps={gbps(row8, bank_ms)}", flush=True)
+        res[Q] = (ms, p_ms)
+    out["fused_topk_int8"] = {"max_abs_err": worst, "ms": res[32][0], "plain_ms": res[32][1]}
+
+    # K4: shift bit-equal; deferred (bf16 query operands) by compare_topk's
+    # rule on the reranked list, its bank's equality reported.
+    worst, res = 0.0, {}
+    for banks in (8, 16):
+        for deferred in (False, True):
+            for keep2 in (False, True):
+                for Q in (1, 32, 128):
+                    q = unit_rows(Q, DIM, gen, dev)
+                    kw = dict(count=count, alive=alive, banks=banks, deferred=deferred,
+                              keep2=keep2)
+                    bank = ft.int4q_candidates_cuda(packed, scales, q, **kw)
+                    plain = ft.int4q_candidates_reference(packed, scales, q, **kw)
+                    same = all(torch.equal(a, b) for a, b in zip(bank, plain))
+                    if not deferred:
+                        check(same, f"K4 shift bank S={banks * 128} keep2={keep2} Q={Q}: "
+                                    "kernel and plain version differ")
+                    args = (packed, scales, codes, q, 10)
+                    kv, ki = ft.fused_score_topk_int4_rerank(*args, **kw)
+                    pv, pi = ft.fused_score_topk_int4_rerank_reference(*args, **kw)
+                    err, n_diff = compare_topk(kv, ki, pv, pi, lambda qi, rows: (
+                        q[qi].bfloat16().float() * codes[rows].float()).sum(1) * scales[rows])
+                    worst = max(worst, err)
+                    ms = cuda_ms(lambda: ft.fused_score_topk_int4_rerank(*args, **kw))
+                    bank_ms = cuda_ms(lambda: ft.int4q_candidates_cuda(packed, scales, q, **kw))
+                    p_ms = plain_ms(lambda: ft.fused_score_topk_int4_rerank_reference(*args,
+                                                                                      **kw))
+                    mode = "deferred" if deferred else "shift"
+                    print(f"[{label}] phase1 K4 int4 {mode} S={banks * 128} keep2={keep2} "
+                          f"Q={Q} bank_bit_equal={same} max_abs_err={err:.3e} "
+                          f"idx_diff={n_diff} kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) "
+                          f"plain_ms={p_ms:.4f} row_read_GBps={gbps(row4, bank_ms)}",
+                          flush=True)
+                    res[(banks, deferred, keep2, Q)] = (ms, p_ms)
+    main = res[(8, True, False, 32)]
+    out["fused_topk_int4q"] = {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
+    del codes, scales, packed, alive
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -196,23 +322,27 @@ def write_checkpoint(model_dir: str, seed: int) -> None:
     save_params(model_dir, cfg, MiniLM(cfg).init_random(seed), vocab=_build_fallback_vocab())
 
 
-def phase2(label: str, seed: int, work: str) -> int:
+def phase2(label: str, seed: int, work: str, store: str, kernel: str) -> int:
+    """One server run on VECTOR_CONNECTION=tpu://{work}/{store}; returns the
+    launches of `kernel` its searches made."""
     model_dir = os.path.join(work, "model")
-    write_checkpoint(model_dir, seed)
+    if not os.path.exists(model_dir):
+        write_checkpoint(model_dir, seed)
+    name = store.split("?")[0]
     port = free_port()
     base = f"http://127.0.0.1:{port}"
     env = dict(os.environ, EMBEDDING_MODEL=model_dir,
-               DATABASE_CONNECTION=f"sqlite://{work}/memex.db",
-               VECTOR_CONNECTION=f"tpu://{work}/vectors", HOST="127.0.0.1",
+               DATABASE_CONNECTION=f"sqlite://{work}/{name}.db",
+               VECTOR_CONNECTION=f"tpu://{work}/{store}", HOST="127.0.0.1",
                PORT=str(port), MEMEX_FAKE_LLM="1",
                PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
-    log_path = os.path.join(work, "server.log")
+    log_path = os.path.join(work, f"server_{name}.log")
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
              "--device", "cuda"], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
     try:
-        return _drive_server(label, seed, base, proc)
+        return _drive_server(f"{label}] [{store}", seed, base, proc, kernel)
     except BaseException:
         with open(log_path) as fh:
             sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
@@ -226,11 +356,11 @@ def phase2(label: str, seed: int, work: str) -> int:
             proc.wait()
 
 
-def _launches(base: str) -> int:
-    return http("GET", f"{base}/api/stats")["counters"].get("kernels.fused_topk.launches", 0)
+def _launches(base: str, kernel: str) -> int:
+    return http("GET", f"{base}/api/stats")["counters"].get(f"kernels.{kernel}.launches", 0)
 
 
-def _drive_server(label: str, seed: int, base: str, proc) -> int:
+def _drive_server(label: str, seed: int, base: str, proc, kernel: str) -> int:
     deadline = time.monotonic() + 300
     while True:
         check(proc.poll() is None, f"server exited with {proc.returncode}")
@@ -259,7 +389,7 @@ def _drive_server(label: str, seed: int, base: str, proc) -> int:
     print(f"[{label}] phase2 ingest docs={len(docs)} seconds={ingest_s:.3f} "
           f"docs_per_s={len(docs) / ingest_s:.2f}", flush=True)
 
-    before = _launches(base)
+    before = _launches(base, kernel)
     limit, per_client, clients = 10, 4, 32
     picks = [rng.randrange(len(docs)) for _ in range(per_client * clients)]
 
@@ -277,7 +407,7 @@ def _drive_server(label: str, seed: int, base: str, proc) -> int:
     with ThreadPoolExecutor(clients) as pool:
         runs = [r for rs in pool.map(client, range(clients)) for r in rs]
     wall = time.perf_counter() - t0
-    after = _launches(base)
+    after = _launches(base, kernel)
     lat = sorted(r[0] * 1e3 for r in runs)
     for _, i, body in runs:
         hits = body["result"]["results"]
@@ -285,7 +415,7 @@ def _drive_server(label: str, seed: int, base: str, proc) -> int:
         check(hits[0]["content"] == docs[i],
               f"exact-text query for doc {i} ranked {hits[0]['content'][:40]!r} first")
     launches = after - before
-    check(launches > 0, "the HTTP searches launched the fused_topk kernel 0 times")
+    check(launches > 0, f"the HTTP searches launched the {kernel} kernel 0 times")
     print(f"[{label}] phase2 search requests={len(runs)} clients={clients} "
           f"qps={len(runs) / wall:.2f} p50_ms={lat[len(lat) // 2]:.3f} "
           f"p99_ms={lat[min(len(lat) - 1, int(len(lat) * 0.99))]:.3f} "
@@ -295,12 +425,26 @@ def _drive_server(label: str, seed: int, base: str, proc) -> int:
 
 # -- phase 3 -------------------------------------------------------------------
 
-def phase3(label: str, seed: int, work: str) -> int:
+# (name, FlatIndex options, the kernel its search runs, recall@10 bar).
+# Smoke bars for random unit rows: refine tiers rerank at ~14-bit fidelity.
+TIERS = (
+    ("float32", {}, "fused_topk", 0.95),
+    ("int8", {"dtype": "int8"}, "fused_topk_int8q", 0.95),
+    ("int8-bf16-queries", {"dtype": "int8", "query_quantize": False}, "fused_topk_int8", 0.95),
+    ("int8-refine", {"dtype": "int8", "refine": True}, "fused_topk_int8q", 0.99),
+    ("int4", {"dtype": "int4"}, "fused_topk_int4q", 0.95),
+    ("int4-refine", {"dtype": "int4", "refine": True}, "fused_topk_int4q", 0.99),
+)
+TIMED_TIERS = ("float32", "int8", "int4")
+
+
+def phase3(label: str, seed: int, work: str) -> dict:
+    """Each tier's 1M-row index in turn (freed before the next). Returns
+    the launches each kernel made in its tiers' searches."""
     import numpy as np
     import torch
 
     from memex_tpu_torch.embed import EmbeddingEngine
-    from memex_tpu_torch.index.flat import FlatIndex
     from memex_tpu_torch.ops import fused_topk as ft
     from memex_tpu_torch.serve.query_path import FusedQueryPath
     from memex_tpu_torch.store.flat_store import TpuFlatStore
@@ -308,48 +452,91 @@ def phase3(label: str, seed: int, work: str) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     base = unit_rows(N_ROWS, DIM, gen, dev)
-    t0 = time.perf_counter()
-    store = TpuFlatStore(None, "scale", dim=DIM, device=dev)
-    index: FlatIndex = store.index
-    index.add(base.cpu().numpy(), [f"r{i}" for i in range(N_ROWS)])
-    torch.cuda.synchronize()
-    print(f"[{label}] phase3 bulk load rows={N_ROWS} seconds={time.perf_counter() - t0:.3f} "
-          f"buffer_gb={index.buf.numel() * 4 / 1e9:.3f}", flush=True)
-
     src = torch.randperm(N_ROWS, generator=gen, device=dev)[:128]
     q = base[src] + 0.05 / DIM ** 0.5 * torch.randn((128, DIM), generator=gen, device=dev)
     q = q / q.norm(dim=1, keepdim=True)
-    ft.LAUNCHES = 0
-    hits = index.search(q.cpu().numpy(), 10)
-    check(ft.LAUNCHES > 0, "FlatIndex.search did not launch the fused_topk kernel")
     oracle = torch.sort(q @ base.T, dim=1, descending=True, stable=True).indices[:, :10].cpu()
-    src = src.cpu().numpy()
-    top1 = np.mean([h[0][0] == f"r{s}" for h, s in zip(hits, src)])
-    recall = np.mean([len({x for x, _ in h} & {f"r{int(j)}" for j in o}) / 10
-                      for h, o in zip(hits, oracle)])
-    print(f"[{label}] phase3 FlatIndex.search Q=128 source_row_first={top1:.4f} "
-          f"recall_at_10_vs_f32_oracle={recall:.4f}", flush=True)
-    check(top1 >= 0.99, f"source row first for only {top1:.4f} of queries")
-    check(recall >= 0.95, f"recall@10 {recall:.4f} < 0.95")
+    base_np, q_np, src = base.cpu().numpy(), q.cpu().numpy(), src.cpu().numpy()
+    ids = [f"r{i}" for i in range(N_ROWS)]
     del base
+    torch.cuda.empty_cache()
 
     engine = EmbeddingEngine(os.path.join(work, "model"), device=dev)
     fqp = FusedQueryPath(engine)
     texts = make_docs(random.Random(seed + 5), 128)
+    launches = dict.fromkeys(ft.LAUNCHES, 0)
+    for name, opts, kernel, bar in TIERS:
+        t0 = time.perf_counter()
+        store = TpuFlatStore(None, f"scale-{name}", dim=DIM, device=dev, **opts)
+        index = store.index
+        index.add(base_np, ids)
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in (
+            index.buf, index.buf8, index.scales, index.rbuf, index.rbuf_scales)
+            if t is not None)
+        print(f"[{label}] phase3 {name} bulk load rows={N_ROWS} "
+              f"seconds={time.perf_counter() - t0:.3f} device_gb={n_bytes / 1e9:.3f}", flush=True)
+        ft.reset_launches()
+        hits = index.search(q_np, 10)
+        n = ft.LAUNCHES[kernel]
+        check(n > 0, f"{name}: FlatIndex.search did not launch {kernel}")
+        launches[kernel] += n
+        top1 = np.mean([h[0][0] == f"r{s}" for h, s in zip(hits, src)])
+        recall = np.mean([len({x for x, _ in h} & {f"r{int(j)}" for j in o}) / 10
+                          for h, o in zip(hits, oracle)])
+        print(f"[{label}] phase3 {name} FlatIndex.search Q=128 {kernel}_launches={n} "
+              f"source_row_first={top1:.4f} recall_at_10_vs_f32_oracle={recall:.4f} "
+              f"(bar {bar})", flush=True)
+        check(top1 >= 0.99, f"{name}: source row first for only {top1:.4f} of queries")
+        check(recall >= bar, f"{name}: recall@10 {recall:.4f} < {bar}")
+        if name in TIMED_TIERS:
+            launches[kernel] += time_query_path(label, name, fqp, store, texts, kernel)
+        del store, index
+        torch.cuda.empty_cache()
+    return launches
+
+
+def time_query_path(label: str, name: str, fqp, store, texts: list[str], kernel: str) -> int:
+    """FusedQueryPath.search_texts at Q in {1, 32, 128}, median of 20
+    batches; each batch must launch the tier's kernel once. Records int4's
+    unpack mode (memex_tpu's rule: deferred up to a 64-query bucket)."""
+    import torch
+
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    modes: list[bool] = []
+    candidates = ft.int4q_candidates
+
+    def recording(*args, **kw):
+        modes.append(kw["deferred"])
+        return candidates(*args, **kw)
+
     launches = 0
-    for Q in (1, 32, 128):
-        fqp.search_texts(store, texts[:Q], 10)  # first use of this shape
-        ft.LAUNCHES = 0
-        times = []
-        for _ in range(20):
-            t = time.perf_counter()
-            res = fqp.search_texts(store, texts[:Q], 10)  # ends in the copy back
-            times.append((time.perf_counter() - t) * 1e3)
-        launches += ft.LAUNCHES
-        check(ft.LAUNCHES == 20, f"fused query path launched K1 {ft.LAUNCHES}x in 20 batches")
-        check(len(res) == Q and all(len(h) == 10 for h in res), "short fused-path results")
-        print(f"[{label}] phase3 FusedQueryPath texts Q={Q} rows={N_ROWS} "
-              f"median_ms={statistics.median(times):.3f} min_ms={min(times):.3f}", flush=True)
+    ft.int4q_candidates = recording
+    try:
+        for Q in (1, 32, 128):
+            fqp.search_texts(store, texts[:Q], 10)  # first use of this shape
+            torch.cuda.synchronize()
+            modes.clear()
+            ft.reset_launches()
+            times = []
+            for _ in range(20):
+                t = time.perf_counter()
+                res = fqp.search_texts(store, texts[:Q], 10)  # ends in the copy back
+                times.append((time.perf_counter() - t) * 1e3)
+            launches += ft.LAUNCHES[kernel]
+            check(ft.LAUNCHES[kernel] == 20,
+                  f"{name}: fused query path launched {kernel} {ft.LAUNCHES[kernel]}x in 20 batches")
+            check(len(res) == Q and all(len(h) == 10 for h in res), "short fused-path results")
+            mode = ""
+            if modes:
+                check(set(modes) == {Q <= 64}, f"int4 unpack modes {set(modes)} at Q={Q}")
+                mode = f" int4_mode={'deferred' if modes[0] else 'shift'}"
+            print(f"[{label}] phase3 {name} FusedQueryPath texts Q={Q} rows={N_ROWS}{mode} "
+                  f"median_ms={statistics.median(times):.3f} min_ms={min(times):.3f}",
+                  flush=True)
+    finally:
+        ft.int4q_candidates = candidates
     return launches
 
 
@@ -369,26 +556,28 @@ def main(argv: list[str] | None = None) -> int:
         print(label, flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        k1 = phase1(label, args.seed)
+        stats = phase1(label, args.seed)
         work = tempfile.mkdtemp(prefix="memex_smoke_")
         try:
-            http_launches = phase2(label, args.seed, work)
-            phase3(label, args.seed, work)
+            # Each kernel's launches come from its tier's main-path run:
+            # HTTP searches for K1 (float32) and K2 (int8+refine), the
+            # 1M-row searches for K3 and K4.
+            http = {"fused_topk": phase2(label, args.seed, work, "vectors", "fused_topk"),
+                    "fused_topk_int8q": phase2(label, args.seed, work,
+                                               "vectors_q?dtype=int8&refine=true",
+                                               "fused_topk_int8q")}
+            launches = phase3(label, args.seed, work)
+            launches.update(http)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        for name, n in launches.items():
+            check(n > 0, f"the main path launched {name} 0 times")
     except (SmokeFailure, ImportError, RuntimeError, OSError) as exc:
         print(f"FAIL: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{
-        "name": "fused_topk",
-        "route": "cuda",
-        "source": "memex_tpu_torch/csrc/fused_topk.cu",
-        "replaces": "memex_tpu/ops/fused_topk.py:80",
-        "launches": http_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches[name], **stats[name]} for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,14 +38,15 @@
 // inputs with f32 accumulation; `exact` keeps FP32 inputs and FP32 FMA
 // throughout. Tensor cores are not used, so TF32 never enters.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "slot_bank.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // fused_topk.py NEG_INF
-constexpr int kQT = 32;            // queries per block: one per lane
+using memex::kQT;
+using memex::round_bf16;
+using memex::SlotBank;
+using memex::transpose_reduce;
+
 constexpr int kWarps = 8;          // slots per block: one per warp
 constexpr int kPairs = 6;          // element pairs per lane
 constexpr int kMaxDim = 64 * kPairs;  // largest row dim: 384 (MiniLM)
@@ -60,10 +61,6 @@ template <>
 struct RowTraits<true> {
   using Raw = __nv_bfloat162;  // two bf16 elements
 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Issue the loads of one row's slice for this lane; the registers are
 // converted only when the row is scored, so the loads stay in flight.
@@ -89,22 +86,6 @@ __device__ __forceinline__ float2 to_f32(typename RowTraits<kBf16Rows>::Raw v) {
     }
     return v;
   }
-}
-
-// Butterfly transpose-reduce over the warp: after the step with offset OFF,
-// lane l holds half as many partial sums, for the queries whose index bits
-// at and above OFF match l's. After the last step part[0] is the full dot
-// of query `lane`. 31 shuffles for 32 sums.
-template <int OFF>
-__device__ __forceinline__ void transpose_reduce(float (&part)[kQT], int lane) {
-  const bool upper = (lane & OFF) != 0;
-#pragma unroll
-  for (int i = 0; i < OFF; ++i) {
-    const float send = upper ? part[i] : part[i + OFF];
-    const float keep = upper ? part[i + OFF] : part[i];
-    part[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
-  }
-  if constexpr (OFF > 1) transpose_reduce<OFF / 2>(part, lane);
 }
 
 template <bool kBf16Rows, bool kExact, bool kKeep2, bool kAlive>
@@ -140,8 +121,7 @@ fused_topk_kernel(const float* __restrict__ q, const void* __restrict__ db_raw,
   }
   __syncthreads();
 
-  float best_v = kNegInf, second_v = kNegInf;
-  int best_i = 0, second_i = 0;
+  SlotBank<kKeep2> bank;
 
   // `next` holds the raw registers of the warp's next column.
   Raw next[kPairs];
@@ -180,32 +160,13 @@ fused_topk_kernel(const float* __restrict__ q, const void* __restrict__ db_raw,
       part[qq] = acc;
     }
     transpose_reduce<kQT / 2>(part, lane);
-    const float s = part[0];
-    const int c = static_cast<int>(col);
     // _fold_chunks: take = s > best; the loser of that duel competes for
     // the second place (keep2).
-    if (s > best_v) {
-      if (kKeep2 && best_v > second_v) {
-        second_v = best_v;
-        second_i = best_i;
-      }
-      best_v = s;
-      best_i = c;
-    } else if (kKeep2 && s > second_v) {
-      second_v = s;
-      second_i = c;
-    }
+    bank.fold(part[0], static_cast<int>(col));
   }
 
-  if (lane < nq) {
-    const long long o = (long long)(q0 + lane) * n_slots + slot;
-    out_v[o] = best_v;
-    out_i[o] = best_i;
-    if (kKeep2) {
-      out_v2[o] = second_v;
-      out_i2[o] = second_i;
-    }
-  }
+  if (lane < nq)
+    bank.store(out_v, out_i, out_v2, out_i2, (long long)(q0 + lane) * n_slots + slot);
 }
 
 struct Args {

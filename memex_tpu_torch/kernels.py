@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` are compiled at first use with `nvcc` into one
-shared library with a plain C interface, loaded through `ctypes`. The
-library lands in `build/memex_tpu_torch/` at the repository root (listed
-in .gitignore), named by a hash of the sources, so an edited `.cu`
-rebuilds and an unchanged one is reused. Nothing here runs at import:
-a CPU-only host imports the package without a CUDA toolkit.
+The sources under `csrc/` are compiled at first use with `nvcc`, one
+process per `.cu` file, all started together, and linked into one shared
+library with a plain C interface, loaded through `ctypes`. The library
+lands in `build/memex_tpu_torch/` at the repository root (listed in
+.gitignore), named by a hash of the sources, so an edited source rebuilds
+and an unchanged one is reused. Nothing here runs at import: a CPU-only
+host imports the package without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "memex_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -66,20 +67,34 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    # Compile to a private name, then rename: a concurrent build never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    logger.info("building CUDA kernels: %s", " ".join(cmd))
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    logger.info("ptxas report:\n%s", proc.stderr[-4000:])
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            logger.info("building CUDA kernels: %s", " ".join(cmd))
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, proc in procs:  # wait for all, so none outlives the build
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {os.path.basename(src)} "
+                              f"(exit {proc.returncode}):\n{report[-4000:]}")
+            else:
+                logger.info("ptxas report for %s:\n%s", os.path.basename(src), report[-4000:])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        # Link to a private name, then rename: a concurrent build never
+        # loads a half-written library.
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        os.replace(lib, out)
     return out
 
 
@@ -98,7 +113,33 @@ def library() -> ctypes.CDLL:
                 c.c_longlong, c.c_int, c.c_int,  # limit, exact, keep2
                 c.c_void_p,  # stream
             ]
-            lib.memex_fused_topk_max_dim.restype = c.c_int
-            lib.memex_fused_topk_max_dim.argtypes = []
+            lib.memex_fused_topk_int8q.restype = c.c_int
+            lib.memex_fused_topk_int8q.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # q8, db, scales, alive
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # v, i, v2, i2
+                c.c_int, c.c_int, c.c_int,  # n_q, d, n_slots
+                c.c_longlong, c.c_int,  # limit, keep2
+                c.c_void_p,  # stream
+            ]
+            lib.memex_fused_topk_int8.restype = c.c_int
+            lib.memex_fused_topk_int8.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # q, db, scales, alive
+                c.c_void_p, c.c_void_p,  # v, i
+                c.c_int, c.c_int, c.c_int, c.c_longlong,  # n_q, d, n_slots, limit
+                c.c_void_p,  # stream
+            ]
+            lib.memex_fused_topk_int4q.restype = c.c_int
+            lib.memex_fused_topk_int4q.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_void_p,  # qa, qb, db_p
+                c.c_void_p, c.c_float, c.c_void_p,  # scales8, scale_mul, alive
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # v, i, v2, i2
+                c.c_int, c.c_int, c.c_int,  # n_q, d, n_slots
+                c.c_longlong, c.c_int, c.c_int,  # limit, deferred, keep2
+                c.c_void_p,  # stream
+            ]
+            for name in ("memex_fused_topk_max_dim", "memex_fused_topk_int8_max_dim",
+                         "memex_fused_topk_int4q_max_dim"):
+                getattr(lib, name).restype = c.c_int
+                getattr(lib, name).argtypes = []
             _lib = lib
         return _lib

@@ -25,7 +25,11 @@ from ..embed.engine import seq_bucket
 from ..index.flat import (
     FlatIndex,
     _exact_flat_rerank,
+    _int4_deferred,
+    _int4_rerank_depth,
     _search_masked_fused,
+    _search_masked_fused_int4,
+    _search_masked_fused_int8,
     _search_plain,
     _search_rerank_fused,
 )
@@ -45,25 +49,48 @@ def _bucket(n, buckets):
 
 def _encode_and_search(engine, ids: np.ndarray, mask: np.ndarray, index: FlatIndex,
                        count: int, mean, *, k: int, k_ret: int, use_fused: bool,
-                       exact: bool):
+                       block_n: int, exact: bool):
     """Encoder forward + the branch structure of FlatIndex.search, on the
-    device. The serve path always passes `index.alive` into the scan and
-    keeps the scan's default 128-wide candidate list (kk), as memex_tpu's
-    serve path does; FlatIndex.search passes alive only when rows are dead."""
+    device. As memex_tpu's serve path does, this always passes
+    `index.alive` into the scan, keeps the scan's default 128-wide
+    candidate list (kk) on the non-rerank branches, and picks int4's
+    unpack from the bucketed batch size (deferred for B <= 64);
+    FlatIndex.search passes alive only when rows are dead."""
     queries = engine.encode_ids(ids, mask)  # unit vectors on the device
+    B = ids.shape[0]
+    dtype = index.dtype
     kk = min(max(4 * k, k_ret), 128)
     with torch.inference_mode():
         if use_fused and k_ret > k:
-            vals, rows = _search_rerank_fused(index.buf, index.alive, count, queries,
-                                              k, k_ret, kk, exact)
+            if dtype == "int4":
+                kk_arg, deferred = _int4_rerank_depth(k_ret), _int4_deferred(B)
+            else:
+                kk_arg, deferred = kk, False
+            vals, rows = _search_rerank_fused(
+                index.buf, index.scales, index.buf8, index.rbuf, index.rbuf_scales,
+                index.alive, count, queries, k, k_ret, kk_arg, block_n,
+                index.query_quantize, deferred, dtype, exact)
+        elif use_fused and dtype == "int4":
+            vals, rows = _search_masked_fused_int4(
+                index.buf, index.scales, index.buf8, index.alive, count, queries, k,
+                block_n=block_n, rerank=_int4_rerank_depth(k), deferred=_int4_deferred(B))
+        elif use_fused and dtype == "int8":
+            vals, rows = _search_masked_fused_int8(
+                index.buf, index.scales, index.alive, count, queries, k, block_n=block_n,
+                qquant=index.query_quantize)
         elif use_fused:
-            vals, rows = _search_masked_fused(index.buf, index.alive, count, queries,
-                                              k, exact=exact, keep2=exact)
+            vals, rows = _search_masked_fused(index.buf, index.alive, count, queries, k,
+                                              exact=exact, keep2=exact)
         else:
-            vals, rows = _search_plain(index.buf, index.alive, count, queries, k_ret,
+            # Plain path: int4 scores from its int8 copy; the rerank runs as
+            # a second stage, like FlatIndex.search's.
+            src = index.buf8 if dtype == "int4" else index.buf
+            vals, rows = _search_plain(src, index.scales, index.alive, count, queries, k_ret,
                                        exact=exact)
             if k_ret > k:
-                vals, rows = _exact_flat_rerank(index.buf, queries, vals, rows, k)
+                vals, rows = _exact_flat_rerank(src, index.scales, queries, vals, rows, k,
+                                                rbuf=index.rbuf,
+                                                rbuf_scales=index.rbuf_scales)
         if mean is not None:
             # Centred storage: restore true cosines with the query-constant
             # q . mean (rank-safe after the rerank too).
@@ -148,7 +175,7 @@ class FusedQueryPath:
         return _encode_and_search(
             self.engine, ids, mask, index, count, _mean_dev(index), k=k_eff,
             k_ret=k_ret, use_fused=index.use_fused and k_ret <= 128,
-            exact=index.scan_precision == "highest")
+            block_n=index.scan_block_n(), exact=index.scan_precision == "highest")
 
     def warmup(self, store, k: int = 10, seq_lens: tuple[int, ...] = (32,),
                q_buckets: tuple[int, ...] | None = None) -> int:

@@ -1,8 +1,8 @@
-"""The CUDA kernel (K1, memex_tpu_torch/csrc/fused_topk.cu) against its
-plain PyTorch version on the card. Marked `gpu`: without a CUDA card every
-test here skips. Run on a card with
+"""The CUDA kernels (memex_tpu_torch/csrc/fused_topk*.cu: K1-K4) against
+their plain PyTorch versions on the card. Marked `gpu`: without a CUDA
+card every test here skips. Run on a card with
 
-    python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
 import numpy as np
@@ -15,8 +15,9 @@ from memex_tpu_torch.ops import fused_topk as ft
 pytestmark = pytest.mark.gpu
 
 N, D = 1 << 16, 384
-# Kernel and plain version sum 384 float32 products in different orders:
-# float32 ulps of a score <= 1.
+# K1 and K3: kernel and plain version sum 384 float32 products in
+# different orders: float32 ulps of a score <= 1. K2 and K4 are exact
+# integer dots and must match bit for bit.
 SCORE_TOL = 2e-5
 
 
@@ -33,6 +34,16 @@ def _unit(gen, n, device):
     return x / x.norm(dim=1, keepdim=True)
 
 
+def _check_near_ties(kv, ki, pv, pi, score_of):
+    """Values within SCORE_TOL; an index may differ only at a near-tie,
+    where the kernel's row must score what the kernel reports."""
+    assert (kv - pv).abs().max().item() <= SCORE_TOL
+    diff = ki != pi
+    if diff.any():
+        qi, pos = torch.nonzero(diff, as_tuple=True)
+        assert (score_of(qi, ki[qi, pos].long()) - kv[qi, pos]).abs().max().item() <= SCORE_TOL
+
+
 @pytest.mark.parametrize("q_n", [1, 32, 77])
 @pytest.mark.parametrize("exact,keep2", [(False, False), (False, True), (True, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -42,21 +53,92 @@ def test_kernel_matches_plain(cuda, dtype, exact, keep2, q_n):
     q = _unit(gen, q_n, cuda)
     alive = (torch.rand(N, generator=gen, device=cuda) > 0.05).float()
     kw = dict(count=N - 1234, alive=alive, exact=exact, keep2=keep2)
-    before = ft.LAUNCHES
+    before = ft.LAUNCHES["fused_topk"]
     kv, ki = ft.fused_score_topk(db, q, 128, **kw)
-    assert ft.LAUNCHES == before + 1
+    assert ft.LAUNCHES["fused_topk"] == before + 1
     pv, pi = ft.fused_score_topk_reference(db, q, 128, **kw)
     torch.cuda.synchronize()
-    assert (kv - pv).abs().max().item() <= SCORE_TOL
-    diff = ki != pi
-    if diff.any():  # only near-ties may swap; the kernel's rows score what it says
-        qi, pos = torch.nonzero(diff, as_tuple=True)
-        rows = db[ki[qi, pos].long()].float()
-        qq = q[qi] if exact and dtype == torch.float32 else q[qi].bfloat16().float()
-        rr = rows if exact and dtype == torch.float32 else rows.bfloat16().float()
-        assert ((qq * rr).sum(1) - kv[qi, pos]).abs().max().item() <= SCORE_TOL
+    full = exact and dtype == torch.float32
+
+    def score_of(qi, rows):
+        qq = q[qi] if full else q[qi].bfloat16().float()
+        rr = db[rows].float() if full else db[rows].bfloat16().float()
+        return (qq * rr).sum(1)
+
+    _check_near_ties(kv, ki, pv, pi, score_of)
     assert int(ki.max()) < N - 1234
     assert (alive[ki.long()] > 0).all()
+
+
+def _int8_corpus(cuda, seed=1):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    codes, scales = ft.quantize_rows_int8(_unit(gen, N, cuda))
+    alive = (torch.rand(N, generator=gen, device=cuda) > 0.05).float()
+    return gen, codes, scales, alive
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_int8q_kernel_is_bit_equal_to_plain(cuda, keep2, q_n):
+    gen, codes, scales, alive = _int8_corpus(cuda)
+    q = _unit(gen, q_n, cuda)
+    q8, _ = ft.quantize_rows_int8(q)
+    kw = dict(count=N - 1234, alive=alive, banks=4, keep2=keep2)
+    bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw)
+    plain = ft.int8q_bank_reference(codes, scales, q8, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(bank[0] + bank[1], plain[0] + plain[1], strict=True):
+        assert torch.equal(a, b)
+    before = ft.LAUNCHES["fused_topk_int8q"]
+    kv, ki = ft.fused_score_topk_int8q(codes, scales, q, 128, **kw)
+    assert ft.LAUNCHES["fused_topk_int8q"] == before + 1
+    pv, pi = ft.fused_score_topk_int8q_reference(codes, scales, q, 128, **kw)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert int(ki.max()) < N - 1234 and (alive[ki.long()] > 0).all()
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+def test_int8_kernel_matches_plain(cuda, q_n):
+    gen, codes, scales, alive = _int8_corpus(cuda, seed=2)
+    q = _unit(gen, q_n, cuda)
+    kw = dict(count=N - 1234, alive=alive, banks=8)
+    before = ft.LAUNCHES["fused_topk_int8"]
+    kv, ki = ft.fused_score_topk_int8(codes, scales, q, 128, **kw)
+    assert ft.LAUNCHES["fused_topk_int8"] == before + 1
+    pv, pi = ft.fused_score_topk_int8_reference(codes, scales, q, 128, **kw)
+    torch.cuda.synchronize()
+
+    def score_of(qi, rows):
+        return (q[qi].bfloat16().float() * codes[rows].float()).sum(1) * scales[rows]
+
+    _check_near_ties(kv, ki, pv, pi, score_of)
+    assert int(ki.max()) < N - 1234 and (alive[ki.long()] > 0).all()
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+@pytest.mark.parametrize("keep2,banks", [(False, 8), (True, 16)])
+@pytest.mark.parametrize("deferred", [False, True])
+def test_int4q_kernel_is_bit_equal_to_plain(cuda, deferred, keep2, banks, q_n):
+    """Both unpack modes are exact integer dots below 2^24 at D = 384."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    packed, _ = ft.np_quantize_rows_int4(x)
+    codes, scales = ft.quantize_rows_int8(torch.from_numpy(x))
+    db_p, codes, scales = (t.to(cuda) for t in (torch.from_numpy(packed), codes, scales))
+    alive = (torch.from_numpy(rng.random(N)).to(cuda) > 0.05).float()
+    q = torch.from_numpy(x[rng.choice(N, q_n)]).to(cuda)
+    kw = dict(count=N - 1234, alive=alive, banks=banks, deferred=deferred, keep2=keep2)
+    before = ft.LAUNCHES["fused_topk_int4q"]
+    bank = ft.int4q_candidates(db_p, scales, q, **kw)
+    assert ft.LAUNCHES["fused_topk_int4q"] == before + 1
+    plain = ft.int4q_candidates_reference(db_p, scales, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bank[0], plain[0]) and torch.equal(bank[1], plain[1])
+    kv, ki = ft.fused_score_topk_int4_rerank(db_p, scales, codes, q, 10, **kw)
+    pv, pi = ft.fused_score_topk_int4_rerank_reference(db_p, scales, codes, q, 10, **kw)
+    _check_near_ties(kv, ki, pv, pi, lambda qi, rows: (
+        q[qi].bfloat16().float() * codes[rows].float()).sum(1) * scales[rows])
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -65,22 +147,39 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         ft.fused_score_topk(torch.zeros((4096, 512), device=cuda), q, 4)
     with pytest.raises(ValueError):
         ft.fused_score_topk(torch.zeros((384, 4096), device=cuda).T, q[:, :384], 4)
+    scales = torch.ones(4096, device=cuda)
+    for d in (376, 512):  # not a multiple of 16 bytes / too wide
+        codes = torch.zeros((4096, d), dtype=torch.int8, device=cuda)
+        with pytest.raises(ValueError):
+            ft.fused_score_topk_int8q(codes, scales, torch.zeros((2, d), device=cuda), 4)
+        with pytest.raises(ValueError):
+            ft.fused_score_topk_int8(codes, scales, torch.zeros((2, d), device=cuda), 4)
+    packed = torch.zeros((4096, 184), dtype=torch.int8, device=cuda)  # d = 368: not d % 32
+    with pytest.raises(ValueError):
+        ft.int4q_candidates(packed, scales, torch.zeros((2, 368), device=cuda))
 
 
-def test_flat_index_on_the_card_matches_cpu(cuda):
+@pytest.mark.parametrize("tier,kernel", [
+    (dict(), "fused_topk"),
+    (dict(dtype="int8", refine=True), "fused_topk_int8q"),
+    (dict(dtype="int8", query_quantize=False), "fused_topk_int8"),
+    (dict(dtype="int4"), "fused_topk_int4q"),
+], ids=["float32", "int8-refine", "int8-bf16-queries", "int4"])
+def test_flat_index_on_the_card_matches_cpu(cuda, tier, kernel):
     rng = np.random.default_rng(0)
     vecs = rng.standard_normal((5000, D)).astype(np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     ids = [f"v{i}" for i in range(5000)]
-    gpu, cpu = FlatIndex(D, device=cuda), FlatIndex(D, device="cpu", use_fused=True)
+    gpu = FlatIndex(D, device=cuda, **tier)
+    cpu = FlatIndex(D, device="cpu", use_fused=True, **tier)
     assert gpu.use_fused
     for idx in (gpu, cpu):
         idx.add(vecs, ids)
         idx.delete(ids[:40])
     q = vecs[100:108]
-    before = ft.LAUNCHES
+    before = ft.LAUNCHES[kernel]
     hg, hc = gpu.search(q, 10), cpu.search(q, 10)
-    assert ft.LAUNCHES > before
+    assert ft.LAUNCHES[kernel] > before
     for a, b in zip(hg, hc):
         assert [s for s, _ in a] == [s for s, _ in b]
         np.testing.assert_allclose([v for _, v in a], [v for _, v in b], atol=SCORE_TOL)

@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
@@ -57,9 +58,9 @@ def model_dir(tmp_path_factory):
     return path
 
 
-def _settings(tmp_path, name, model_dir):
+def _settings(tmp_path, name, model_dir, query=""):
     s = Settings.from_env(db_uri=f"sqlite://{tmp_path}/{name}.db",
-                          vector_uri=f"tpu://{tmp_path}/{name}_vectors",
+                          vector_uri=f"tpu://{tmp_path}/{name}_vectors{query}",
                           embedding_model=model_dir)
     s.embedding_dim = DIM
     return s
@@ -109,20 +110,74 @@ def _check_same_hits(ref, got):
             assert abs(other - a["score"]) <= 2 * SCORE_TOL, (i, a, b)
 
 
-def test_http_ingest_then_search_matches_jax(tmp_path, model_dir):
+def _http_parity(tmp_path, model_dir, query=""):
     docs = _docs(1, 12)
     queries = docs[:4] + [" ".join(d.split()[:5]) for d in docs[4:8]]
     limit = 5
-    ref = _ingest_and_search(Runtime(_settings(tmp_path, "jax", model_dir)),
+    ref = _ingest_and_search(Runtime(_settings(tmp_path, "jax", model_dir, query)),
                              docs, queries, limit)
-    got = _ingest_and_search(TorchRuntime(_settings(tmp_path, "torch", model_dir),
-                                          device="cpu"), docs, queries, limit)
+    rt = TorchRuntime(_settings(tmp_path, "torch", model_dir, query), device="cpu")
+    got = _ingest_and_search(rt, docs, queries, limit)
     for q, r, g in zip(queries, ref, got):
         assert len(g) == len(r) == limit
         _check_same_hits(r, g)
     for i in range(4):  # a document's exact text finds one of its segments first
         assert got[i][0]["content"] in docs[i]
         assert got[i][0]["document_id"] == ref[i][0]["document_id"]
+    return rt
+
+
+def test_http_ingest_then_search_matches_jax(tmp_path, model_dir):
+    _http_parity(tmp_path, model_dir)
+
+
+def test_http_int8_refine_store_matches_jax(tmp_path, model_dir):
+    """The same flow on an int8 store with a residual-refinement rerank."""
+    rt = _http_parity(tmp_path, model_dir, "?dtype=int8&refine=true")
+    index = rt.store("notes").index
+    assert index.dtype == "int8" and index.refine and index.rerank == 128
+
+
+def test_fused_query_path_int4_shift_matches_jax(model_dir, monkeypatch):
+    """The port's FusedQueryPath on an int4 store at a batch that buckets
+    above 64 (int4's shift unpack), against memex_tpu's FlatIndex.search
+    (Pallas in interpret mode, also shift mode above Q = 64) on the same
+    query vectors."""
+    from memex_tpu.index.flat import FlatIndex as JaxFlat
+    from memex_tpu_torch.embed import EmbeddingEngine
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.serve import query_path
+    from memex_tpu_torch.store.flat_store import TpuFlatStore
+
+    engine = EmbeddingEngine(model_dir, device="cpu")
+    docs = _docs(2, 300)
+    vecs = engine.encode_batch(docs)
+    store = TpuFlatStore(None, "c", dim=DIM, dtype="int4", use_fused=True, device="cpu")
+    store.index.add(vecs, [f"d{i}" for i in range(len(docs))])
+    jx = JaxFlat(DIM, dtype="int4", use_fused=True)
+    jx._interpret = True
+    jx.add(vecs, [f"d{i}" for i in range(len(docs))])
+    texts = docs[:70]
+    seen = {}
+    encode, bank = engine.encode_ids, ft.int4q_candidates
+
+    def capture_encode(ids, mask):
+        seen["queries"] = encode(ids, mask)
+        return seen["queries"]
+
+    def capture_bank(*args, **kw):
+        seen["deferred"] = kw["deferred"]
+        return bank(*args, **kw)
+
+    monkeypatch.setattr(engine, "encode_ids", capture_encode)
+    monkeypatch.setattr(ft, "int4q_candidates", capture_bank)
+    got = query_path.FusedQueryPath(engine).search_texts(store, texts, 10)
+    assert seen["deferred"] is False and seen["queries"].shape[0] == 128
+    ref = jx.search(seen["queries"][: len(texts)].numpy(), 10)
+    for r, g in zip(ref, got, strict=True):
+        assert [sid for sid, _ in g] == [sid for sid, _ in r]
+        np.testing.assert_allclose([v for _, v in g], [v for _, v in r], rtol=0, atol=2e-5)
+    assert all(g[0][0] == f"d{i}" for i, g in enumerate(got))
 
 
 _ALONE = textwrap.dedent("""
@@ -139,7 +194,7 @@ _ALONE = textwrap.dedent("""
 
     tmp = tempfile.mkdtemp(dir=sys.argv[2])
     s = Settings.from_env(db_uri=f"sqlite://{tmp}/t.db",
-                          vector_uri=f"tpu://{tmp}/vec?use_fused=1",
+                          vector_uri=f"tpu://{tmp}/vec?use_fused=1{sys.argv[5]}",
                           embedding_model=sys.argv[3])
     s.embedding_dim = int(sys.argv[4])
     rt = TorchRuntime(s, device="cpu")
@@ -165,14 +220,16 @@ _ALONE = textwrap.dedent("""
 
 def test_port_alone_never_imports_jax(tmp_path, model_dir):
     """This process already imported jax (conftest), so the check runs in
-    a fresh interpreter: a full ingest and search through the port."""
+    a fresh interpreter: a full ingest and search through the port, on a
+    float32 store and on an int8 store with refine."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    out = subprocess.run([sys.executable, "-c", _ALONE, ROOT, str(tmp_path), model_dir,
-                          str(DIM)], capture_output=True, text=True, timeout=300,
-                         env=env, cwd=str(tmp_path))
-    assert out.returncode == 0, out.stderr[-3000:]
-    result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result == {"hits": 1, "jax": False}
+    for query in ("", "&dtype=int8&refine=true"):
+        out = subprocess.run([sys.executable, "-c", _ALONE, ROOT, str(tmp_path), model_dir,
+                              str(DIM), query], capture_output=True, text=True, timeout=300,
+                             env=env, cwd=str(tmp_path))
+        assert out.returncode == 0, out.stderr[-3000:]
+        result = json.loads(out.stdout.strip().splitlines()[-1])
+        assert result == {"hits": 1, "jax": False}
 
 
 def test_cli_refuses_cuda_without_a_card(monkeypatch):
