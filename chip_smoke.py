@@ -17,19 +17,34 @@ result line) on any failed phase:
      keep2 off/on), both bit-equal to their plain versions; K3 (int8 rows,
      bf16 queries, S = 1024) and K4 in deferred mode, within tolerance;
   2. the HTTP server (`python -m memex_tpu_torch serve`) at full
-     all-MiniLM-L12-v2 width with seeded random weights, once on a float32
-     store and once on an int8+refine store: ~200 documents ingested,
+     all-MiniLM-L12-v2 width with seeded random weights, on a float32
+     store and on an int8+refine store (~200 documents each), then on a
+     `tpu+ivf://` store (~1,200 documents, enough for the store's spill
+     rule to enqueue a worker Maintain task, which trains the index):
      searches from 32 concurrent clients, proof through the server's
-     launch counters that the searches ran K1, then K2;
-  3. 1,048,576-row indexes of each tier, one at a time (float32, int8,
-     int8 with bf16 queries, int8+refine, int4, int4+refine): retrieval
-     checks against a float32 brute-force oracle, proof that each search
-     launched its tier's kernel, and the fused text-query path timed at
-     Q in {1, 32, 128} on the float32, int8 and int4 stores.
+     launch counters that the searches ran K1, K2, then K5;
+  3. 1,048,576-row indexes of each flat tier, one at a time (float32,
+     int8, int8 with bf16 queries, int8+refine, int4, int4+refine):
+     retrieval checks against a float32 brute-force oracle, proof that each
+     search launched its tier's kernel, and the fused text-query path
+     timed at Q in {1, 32, 128} on the float32, int8 and int4 stores;
+  4. the IVF tier at memex_tpu's 10M configuration (bench.py: 10,485,760
+     clustered rows, int8, n_clusters=4096, nprobe=64, bucket_factor=1.2,
+     built on the device): K5 (keep2 off/on), K6 (its int4 mirror) and K7
+     against their plain versions on the index's routed unions at Q in
+     {1, 32, 128}; recall@10 of IVFIndex.search against a float32 oracle
+     for int8 (K5) and scan_int4 (K6); the store's search_batch timed on
+     text queries; then 1,048,576-row host-built indexes (float32,
+     float32 with scan_precision="highest", int8+refine) and a 4-cluster
+     index whose buckets only K7 can scan, each with a recall check; on
+     the float32 ones K5 in the mode each search runs (bf16-rounded rows,
+     as the HTTP run's float32 store; exact with keep2), and on the
+     4-cluster one K7 on its own probes, against their plain versions.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts (from the phase-2 and phase-3 runs
-of their tiers), errors and times.
+the kernels with their launch counts (from the main-path run of each:
+HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
+searches for K3 and K4), errors and times.
 """
 
 from __future__ import annotations
@@ -57,18 +72,24 @@ DIM = 384
 # float32 ulps of a score <= 1 (~1e-6 observed), so 2e-5 is loose for the
 # arithmetic and tight against any real indexing or masking fault.
 SCORE_TOL = 2e-5
-# The kernels' TPU originals (memex_tpu/ops/fused_topk.py).
+# The kernels' TPU originals (memex_tpu/ops/).
 REPLACES = {
     "fused_topk": "memex_tpu/ops/fused_topk.py:80",
     "fused_topk_int8q": "memex_tpu/ops/fused_topk.py:412",
     "fused_topk_int8": "memex_tpu/ops/fused_topk.py:274",
     "fused_topk_int4q": "memex_tpu/ops/fused_topk.py:578",
+    "ivf_batch": "memex_tpu/ops/ivf_batch.py:108",
+    "ivf_batch4": "memex_tpu/ops/ivf_batch4.py:103",
+    "ivf_probe": "memex_tpu/ops/ivf_scan.py:31",
 }
 SOURCES = {
     "fused_topk": "memex_tpu_torch/csrc/fused_topk.cu",
     "fused_topk_int8q": "memex_tpu_torch/csrc/fused_topk_int8.cu",
     "fused_topk_int8": "memex_tpu_torch/csrc/fused_topk_int8.cu",
     "fused_topk_int4q": "memex_tpu_torch/csrc/fused_topk_int4.cu",
+    "ivf_batch": "memex_tpu_torch/csrc/ivf_batch.cu",
+    "ivf_batch4": "memex_tpu_torch/csrc/ivf_batch4.cu",
+    "ivf_probe": "memex_tpu_torch/csrc/ivf_scan.cu",
 }
 
 
@@ -322,18 +343,21 @@ def write_checkpoint(model_dir: str, seed: int) -> None:
     save_params(model_dir, cfg, MiniLM(cfg).init_random(seed), vocab=_build_fallback_vocab())
 
 
-def phase2(label: str, seed: int, work: str, store: str, kernel: str) -> int:
-    """One server run on VECTOR_CONNECTION=tpu://{work}/{store}; returns the
-    launches of `kernel` its searches made."""
+def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: str = "tpu",
+           n_docs: int = 200) -> int:
+    """One server run on VECTOR_CONNECTION={scheme}://{work}/{store} with
+    n_docs documents; returns the launches of `kernel` its searches made.
+    An IVF store's searches wait for the Maintain tasks its ingest queued."""
     model_dir = os.path.join(work, "model")
     if not os.path.exists(model_dir):
         write_checkpoint(model_dir, seed)
     name = store.split("?")[0]
     port = free_port()
     base = f"http://127.0.0.1:{port}"
+    db_path = os.path.join(work, f"{name}.db")
     env = dict(os.environ, EMBEDDING_MODEL=model_dir,
-               DATABASE_CONNECTION=f"sqlite://{work}/{name}.db",
-               VECTOR_CONNECTION=f"tpu://{work}/{store}", HOST="127.0.0.1",
+               DATABASE_CONNECTION=f"sqlite://{db_path}",
+               VECTOR_CONNECTION=f"{scheme}://{work}/{store}", HOST="127.0.0.1",
                PORT=str(port), MEMEX_FAKE_LLM="1",
                PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     log_path = os.path.join(work, f"server_{name}.log")
@@ -342,7 +366,8 @@ def phase2(label: str, seed: int, work: str, store: str, kernel: str) -> int:
             [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
              "--device", "cuda"], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
     try:
-        return _drive_server(f"{label}] [{store}", seed, base, proc, kernel)
+        return _drive_server(f"{label}] [{scheme}://{store}", seed, base, proc, kernel, n_docs,
+                             db_path if scheme == "tpu+ivf" else None)
     except BaseException:
         with open(log_path) as fh:
             sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
@@ -360,7 +385,28 @@ def _launches(base: str, kernel: str) -> int:
     return http("GET", f"{base}/api/stats")["counters"].get(f"kernels.{kernel}.launches", 0)
 
 
-def _drive_server(label: str, seed: int, base: str, proc, kernel: str) -> int:
+def wait_maintenance(label: str, db_path: str, timeout: float = 300.0) -> None:
+    """Wait until the server's queue holds Maintain tasks and all are
+    Completed (the worker retrained the index)."""
+    import sqlite3
+
+    t0 = time.perf_counter()
+    while True:
+        with sqlite3.connect(db_path) as conn:
+            states = [r[0] for r in conn.execute(
+                "SELECT status FROM queue WHERE task_type = 'Maintain'")]
+        check("Failed" not in states, "a Maintain task failed")
+        if states and all(st == "Completed" for st in states):
+            break
+        check(time.perf_counter() - t0 < timeout,
+              f"Maintain tasks {states or 'never queued'} after {timeout:.0f}s")
+        time.sleep(0.2)
+    print(f"[{label}] phase2 maintain tasks={len(states)} completed "
+          f"wait_seconds={time.perf_counter() - t0:.3f}", flush=True)
+
+
+def _drive_server(label: str, seed: int, base: str, proc, kernel: str, n_docs: int,
+                  maintain_db: str | None) -> int:
     deadline = time.monotonic() + 300
     while True:
         check(proc.poll() is None, f"server exited with {proc.returncode}")
@@ -371,7 +417,7 @@ def _drive_server(label: str, seed: int, base: str, proc, kernel: str) -> int:
             check(time.monotonic() < deadline, "server did not come up in 300s")
             time.sleep(0.5)
     rng = random.Random(seed)
-    docs = make_docs(rng, 200)
+    docs = make_docs(rng, n_docs)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(16) as pool:
         tasks = list(pool.map(lambda d: http("POST", f"{base}/api/collections/smoke",
@@ -388,6 +434,8 @@ def _drive_server(label: str, seed: int, base: str, proc, kernel: str) -> int:
     ingest_s = time.perf_counter() - t0
     print(f"[{label}] phase2 ingest docs={len(docs)} seconds={ingest_s:.3f} "
           f"docs_per_s={len(docs) / ingest_s:.2f}", flush=True)
+    if maintain_db:
+        wait_maintenance(label, maintain_db)
 
     before = _launches(base, kernel)
     limit, per_client, clients = 10, 4, 32
@@ -540,6 +588,355 @@ def time_query_path(label: str, name: str, fqp, store, texts: list[str], kernel:
     return launches
 
 
+# -- phase 4 -------------------------------------------------------------------
+
+# memex_tpu's 10M IVF configuration (bench.py:588-590) and its corpus: rows
+# scattered around 8,192 unit centres with sigma = 0.75 / sqrt(D)
+# (bench.py:466-481; cos(row, centre) ~ 0.8).
+N_10M = 10 * (1 << 20)
+IVF_10M = dict(n_clusters=4096, nprobe=64, dtype="int8", bucket_factor=1.2)
+IVF_CENTRES = 8192
+IVF_K = 10
+IVF_1M_CLUSTERS = 1024
+# (name, host-built 1M IVFIndex options, kernel, recall@10 bar).
+IVF_1M = (
+    ("float32", {}, "ivf_batch", 0.93),
+    ("float32-highest", {"scan_precision": "highest"}, "ivf_batch", 0.93),
+    ("int8-refine", {"dtype": "int8", "refine": True}, "ivf_batch", 0.95),
+)
+
+
+def clustered_rows(n: int, centres, gen, block: int = 1 << 20):
+    """[n, D] float32 unit rows around random centres, made on the card."""
+    import torch
+
+    sigma = 0.75 / DIM ** 0.5
+    out = torch.empty((n, DIM), device=centres.device)
+    for lo in range(0, n, block):
+        m = min(block, n - lo)
+        asg = torch.randint(0, centres.shape[0], (m,), generator=gen, device=centres.device)
+        v = centres[asg] + sigma * torch.randn((m, DIM), generator=gen, device=centres.device)
+        out[lo : lo + m] = v / v.norm(dim=1, keepdim=True)
+    return out
+
+
+def oracle_topk(q, corpus, k: int = IVF_K, block: int = 1 << 20):
+    """Exact float32 top-k ids of q against the corpus, blockwise."""
+    import torch
+
+    best_v = best_i = None
+    for lo in range(0, corpus.shape[0], block):
+        sc = q @ corpus[lo : lo + block].T
+        v, i = torch.topk(sc, k, dim=1)
+        i = i + lo
+        if best_v is not None:
+            v, j = torch.topk(torch.cat([best_v, v], 1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, j)
+        best_v, best_i = v, i
+    return best_i.cpu().numpy()
+
+
+def recall_at_k(hits, oracle) -> float:
+    import numpy as np
+
+    return float(np.mean([len({int(s) for s, _ in h} & {int(j) for j in o}) / len(o)
+                          for h, o in zip(hits, oracle)]))
+
+
+def index_gb(index) -> float:
+    parts = [index.data, index.rscales, index.resid, index.resid_scales, index._data4,
+             index._rscales4, index._rowids_dev, index.spill.buf, index.spill.scales,
+             index.spill.rbuf, index.spill.rbuf_scales, index.spill.alive]
+    return sum(t.numel() * t.element_size() for t in parts if t is not None) / 1e9
+
+
+def compare_bank(bank, plain, score_of) -> tuple[float, int]:
+    """Kernel bank vs plain bank, slot by slot: values within SCORE_TOL; an
+    index may differ only where the kernel's row scores what the kernel
+    holds. Returns (max abs error, differing slots)."""
+    import torch
+
+    err, n_diff = 0.0, 0
+    for kv, ki, pv, pi in zip(bank[0], bank[1], plain[0], plain[1], strict=True):
+        err = max(err, (kv - pv).abs().max().item())
+        live = kv > -1e29
+        check(torch.equal(live, pv > -1e29), "kernel and plain banks fill different slots")
+        diff = live & (ki != pi)
+        n_diff += int(diff.sum().item())
+        if diff.any():
+            qi, slot = torch.nonzero(diff, as_tuple=True)
+            gap = (score_of(qi, ki[qi, slot].long()) - kv[qi, slot]).abs().max().item()
+            check(gap <= SCORE_TOL, f"kernel index scores {gap:.3e} off its value")
+    check(err <= SCORE_TOL, f"bank values differ by {err:.3e} > {SCORE_TOL}")
+    return err, n_diff
+
+
+def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
+    """The IVF tier on the card. Returns (launches of K6 and K7 in
+    IVFIndex.search, kernel stats of K5-K7)."""
+    import numpy as np
+    import torch
+
+    from memex_tpu_torch.embed import EmbeddingEngine
+    from memex_tpu_torch.index.ivf import IVFIndex, _route
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.ops import ivf_batch as ib
+    from memex_tpu_torch.ops import ivf_batch4 as ib4
+    from memex_tpu_torch.ops import ivf_scan as isc
+    from memex_tpu_torch.store.ivf_store import TpuIVFStore
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    centres = unit_rows(IVF_CENTRES, DIM, gen, dev)
+    t0 = time.perf_counter()
+    corpus = clustered_rows(N_10M, centres, gen)
+    queries = clustered_rows(128, centres, gen)
+    oracle = oracle_topk(queries, corpus)
+    codes = torch.empty((N_10M, DIM), dtype=torch.int8, device=dev)
+    scales = torch.empty((N_10M,), device=dev)
+    for lo in range(0, N_10M, 1 << 20):
+        codes[lo : lo + (1 << 20)], scales[lo : lo + (1 << 20)] = ft.quantize_rows_int8(
+            corpus[lo : lo + (1 << 20)])
+    del corpus
+    torch.cuda.empty_cache()
+    print(f"[{label}] phase4 10M corpus rows={N_10M} + oracle "
+          f"seconds={time.perf_counter() - t0:.3f}", flush=True)
+
+    store = TpuIVFStore(None, "ivf10m", dim=DIM, device=dev, **IVF_10M)
+    index = store.index
+    t0 = time.perf_counter()
+    index.build_device(codes, scales, list(range(N_10M)))
+    torch.cuda.synchronize()
+    del codes, scales
+    torch.cuda.empty_cache()
+    C, M, _ = index.data.shape
+    data4, rsc4 = index._int4_mirror()
+    print(f"[{label}] phase4 10M build_device seconds={time.perf_counter() - t0:.3f} C={C} "
+          f"M={M} spill_rows={index.spill.count} device_gb={index_gb(index):.3f}", flush=True)
+
+    flat, fsc = index.data.view(-1, DIM), index.rscales.view(-1)
+    hi4 = None
+    stats, res = {}, {}
+    for Q in (1, 32, 128):
+        q = queries[:Q].contiguous()
+        clist, nact = ib.route_union(index.centroids, q, index.nprobe)
+        walk, n_chunks = ib._chunk_walk(index.sizes, clist, nact, M, 1024)
+        n_ch = int(n_chunks[0])
+        q16 = q.bfloat16().float()
+
+        def score8(qi, idx):
+            return (q16[qi] * flat[idx].float()).sum(1) * fsc[idx]
+
+        for keep2 in (False, True):
+            args = (index.data, index.rscales, index.sizes, walk, n_chunks, q)
+            bank = ib.ivf_batch_bank_cuda(*args, banks=8, keep2=keep2)
+            plain = ib.ivf_batch_bank_reference(*args, banks=8, keep2=keep2)
+            torch.cuda.synchronize()
+            err, n_diff = compare_bank(bank, plain, score8)
+            top_args = (index.data, index.rscales, index.sizes, clist, nact, q, IVF_K)
+            ms = cuda_ms(lambda: ib.ivf_batch_topk(*top_args, banks=8, keep2=keep2))
+            bank_ms = cuda_ms(lambda: ib.ivf_batch_bank_cuda(*args, banks=8, keep2=keep2))
+            p_ms = plain_ms(lambda: ft._bank_topk(
+                *ib.ivf_batch_bank_reference(*args, banks=8, keep2=keep2), IVF_K))
+            n_bytes = n_ch * 1024 * (DIM + 4)
+            print(f"[{label}] phase4 K5 int8 S=1024 keep2={keep2} Q={Q} union_clusters="
+                  f"{int(nact[0])} chunks={n_ch} bytes={n_bytes} max_abs_err={err:.3e} "
+                  f"slot_idx_diff={n_diff} kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) "
+                  f"plain_ms={p_ms:.4f} row_read_GBps={gbps(n_bytes, bank_ms)}", flush=True)
+            res[("ivf_batch", keep2, Q)] = (err, ms, p_ms)
+
+        if hi4 is None:
+            hi4 = torch.clamp((flat.to(torch.int32) + 8) >> 4, -7, 7).to(torch.int8)
+        rs4 = rsc4.view(-1)
+
+        def score4(qi, idx):
+            return (q16[qi] * hi4[idx].float()).sum(1) * rs4[idx]
+
+        args4 = (data4, rsc4, index.sizes, walk, n_chunks, q)
+        bank = ib4.ivf_batch4_bank_cuda(*args4, banks=8)
+        plain = ib4.ivf_batch4_bank_reference(*args4, banks=8)
+        torch.cuda.synchronize()
+        err, n_diff = compare_bank(bank, plain, score4)
+        ms = cuda_ms(lambda: ib4.ivf_batch_topk4(data4, rsc4, index.sizes, clist, nact, q,
+                                                  1024, banks=8))
+        bank_ms = cuda_ms(lambda: ib4.ivf_batch4_bank_cuda(*args4, banks=8))
+        p_ms = plain_ms(lambda: ft._bank_topk(*ib4.ivf_batch4_bank_reference(*args4, banks=8),
+                                              1024))
+        n_bytes = n_ch * 1024 * (DIM // 2 + 4)
+        print(f"[{label}] phase4 K6 int4 S=1024 Q={Q} chunks={n_ch} bytes={n_bytes} "
+              f"max_abs_err={err:.3e} slot_idx_diff={n_diff} kernel_ms={ms:.4f} (bank only "
+              f"{bank_ms:.4f}) plain_ms={p_ms:.4f} row_read_GBps={gbps(n_bytes, bank_ms)}",
+              flush=True)
+        res[("ivf_batch4", False, Q)] = (err, ms, p_ms)
+
+        probes = _route(index.centroids, q, index.nprobe).to(torch.int32)
+        argsp = (index.data, index.rscales, index.sizes, probes, q)
+        bank = isc.ivf_probe_bank_cuda(*argsp)
+        plain = isc.ivf_probe_bank_reference(*argsp)
+        torch.cuda.synchronize()
+        err, n_diff = compare_bank(bank, plain, score8)
+        ms = cuda_ms(lambda: isc.ivf_probe_topk(*argsp[:4], q, IVF_K))
+        bank_ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(*argsp))
+        p_ms = plain_ms(lambda: ft._bank_topk(*isc.ivf_probe_bank_reference(*argsp), IVF_K))
+        live = int(index.sizes.long()[probes.long()].sum())
+        n_bytes = live * (DIM + 4)
+        print(f"[{label}] phase4 K7 int8 S=256 Q={Q} probed_rows={live} bytes={n_bytes} "
+              f"max_abs_err={err:.3e} slot_idx_diff={n_diff} kernel_ms={ms:.4f} (bank only "
+              f"{bank_ms:.4f}) plain_ms={p_ms:.4f} row_read_GBps={gbps(n_bytes, bank_ms)}",
+              flush=True)
+        res[("ivf_probe", False, Q)] = (err, ms, p_ms)
+    del hi4
+    for name in ("ivf_batch", "ivf_batch4", "ivf_probe"):
+        mine = [v for key, v in res.items() if key[0] == name]
+        main = res[(name, False, 32)]
+        stats[name] = {"max_abs_err": max(v[0] for v in mine), "ms": main[1],
+                       "plain_ms": main[2]}
+
+    # Recall through IVFIndex.search, each search proven to run its kernel.
+    q_np = queries.cpu().numpy()
+    launches = {}
+    for scan_int4, kernel in ((False, "ivf_batch"), (True, "ivf_batch4")):
+        index.scan_int4 = scan_int4
+        ft.reset_launches()
+        hits = index.search(q_np, IVF_K)
+        n = ft.LAUNCHES[kernel]
+        check(n > 0, f"10M IVFIndex.search (scan_int4={scan_int4}) did not launch {kernel}")
+        if scan_int4:
+            launches[kernel] = n  # K5's main path is the HTTP run
+        rec = recall_at_k(hits, oracle)
+        print(f"[{label}] phase4 10M int8 scan_int4={scan_int4} IVFIndex.search Q=128 "
+              f"{kernel}_launches={n} recall_at_10_vs_f32_oracle={rec:.4f} (bar 0.93)",
+              flush=True)
+        check(rec >= 0.93, f"10M IVF scan_int4={scan_int4}: recall@10 {rec:.4f} < 0.93")
+    index.scan_int4 = False
+
+    engine = EmbeddingEngine(os.path.join(work, "model"), device=dev)
+    texts = make_docs(random.Random(seed + 7), 128)
+    for Q in (1, 32, 128):
+        vecs = engine.encode_batch(texts[:Q])
+        store.search_batch(vecs, IVF_K)  # first use of this shape
+        torch.cuda.synchronize()
+        ft.reset_launches()
+        times = []
+        for _ in range(20):
+            t = time.perf_counter()
+            out = store.search_batch(engine.encode_batch(texts[:Q]), IVF_K)
+            times.append((time.perf_counter() - t) * 1e3)
+        check(ft.LAUNCHES["ivf_batch"] == 20 and len(out) == Q,
+              f"10M store.search_batch launched K5 {ft.LAUNCHES['ivf_batch']}x in 20 batches")
+        print(f"[{label}] phase4 10M TpuIVFStore.search_batch(encode_batch(texts)) Q={Q} "
+              f"median_ms={statistics.median(times):.3f} min_ms={min(times):.3f}", flush=True)
+    del store, index, data4, rsc4, flat, fsc, rs4
+    torch.cuda.empty_cache()
+
+    # Host-built 1M indexes, and one whose buckets only K7 can scan.
+    base = clustered_rows(N_ROWS, centres, gen)
+    q1 = clustered_rows(128, centres, gen)
+    oracle1 = oracle_topk(q1, base)
+    base_np, q1_np = base.cpu().numpy(), q1.cpu().numpy()
+    del base
+    torch.cuda.empty_cache()
+    ids = list(range(N_ROWS))
+    for name, opts, kernel, bar, kw, n_q in (
+            *((n, o, k, b, dict(n_clusters=IVF_1M_CLUSTERS), 128) for n, o, k, b in IVF_1M),
+            ("int8-4-clusters", {"dtype": "int8"}, "ivf_probe", 0.90, dict(n_clusters=4), 32)):
+        t0 = time.perf_counter()
+        index = IVFIndex(DIM, nprobe=64, bucket_factor=1.2, device=dev, **kw, **opts)
+        index.build(base_np, ids)
+        torch.cuda.synchronize()
+        M = index.data.shape[1]
+        print(f"[{label}] phase4 1M {name} host build seconds={time.perf_counter() - t0:.3f} "
+              f"C={index.C} M={M} chunks_of_1024={M // 1024} spill_rows={index.spill.count} "
+              f"device_gb={index_gb(index):.3f}", flush=True)
+        ft.reset_launches()
+        t0 = time.perf_counter()
+        hits = index.search(q1_np[:n_q], IVF_K)
+        search_s = time.perf_counter() - t0
+        n = ft.LAUNCHES[kernel]
+        check(n > 0, f"1M IVF {name}: IVFIndex.search did not launch {kernel}")
+        if kernel == "ivf_probe":
+            launches[kernel] = n
+        rec = recall_at_k(hits, oracle1[:n_q])
+        print(f"[{label}] phase4 1M {name} IVFIndex.search Q={n_q} {kernel}_launches={n} "
+              f"seconds={search_s:.3f} recall_at_10_vs_f32_oracle={rec:.4f} (bar {bar})",
+              flush=True)
+        check(rec >= bar, f"1M IVF {name}: recall@10 {rec:.4f} < {bar}")
+        if kernel == "ivf_probe":
+            err = compare_probe_scan(label, name, index, q1[:n_q])
+        elif index.dtype == "float32":
+            err = compare_float_scan(label, name, index, q1)
+        else:
+            err = 0.0  # K5 keep2 on int8 rows: held at 10M above
+        stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], err)
+        del index
+        torch.cuda.empty_cache()
+    return launches, stats
+
+
+def compare_float_scan(label: str, name: str, index, q) -> float:
+    """K5 on a float32 1M index's routed union, in the mode its search runs
+    (bf16-rounded inputs; exact with keep2 under scan_precision="highest"),
+    against the plain version. Returns the max abs error."""
+    import torch
+
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.ops import ivf_batch as ib
+
+    exact = keep2 = index.scan_precision == "highest"
+    M = index.data.shape[1]
+    flat = index.data.view(-1, DIM)
+    banks = index._batch_banks()
+    clist, nact = ib.route_union(index.centroids, q, index.nprobe)
+    walk, n_chunks = ib._chunk_walk(index.sizes, clist, nact, M, banks * 128)
+    args = (index.data, index.rscales, index.sizes, walk, n_chunks, q)
+    kw = dict(banks=banks, exact=exact, keep2=keep2)
+    bank = ib.ivf_batch_bank_cuda(*args, **kw)
+    plain = ib.ivf_batch_bank_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err, n_diff = compare_bank(bank, plain, lambda qi, idx: ft.scores_f32(
+        q[qi][:, None, :], flat[idx][:, :, None], exact)[:, 0, 0])
+    bank_ms = cuda_ms(lambda: ib.ivf_batch_bank_cuda(*args, **kw))
+    p_ms = plain_ms(lambda: ib.ivf_batch_bank_reference(*args, **kw))
+    n_ch = int(n_chunks[0])
+    n_bytes = n_ch * banks * 128 * DIM * 4
+    print(f"[{label}] phase4 1M {name} K5 f32 S={banks * 128} exact={exact} keep2={keep2} "
+          f"Q={q.shape[0]} "
+          f"union_clusters={int(nact[0])} chunks={n_ch} max_abs_err={err:.3e} "
+          f"slot_idx_diff={n_diff} bank_ms={bank_ms:.4f} plain_bank_ms={p_ms:.4f} "
+          f"row_read_GBps={gbps(n_bytes, bank_ms)}", flush=True)
+    return err
+
+
+def compare_probe_scan(label: str, name: str, index, q, block: int = 8) -> float:
+    """K7 on the index's own probes against the plain version, which runs
+    `block` queries at a time (a query's plain bank holds its probes' whole
+    buckets in float32). Returns the max abs error."""
+    import torch
+
+    from memex_tpu_torch.index.ivf import _route
+    from memex_tpu_torch.ops import ivf_scan as isc
+
+    flat, fsc = index.data.view(-1, DIM), index.rscales.view(-1)
+    probes = _route(index.centroids, q, index.nprobe).to(torch.int32)
+    args = (index.data, index.rscales, index.sizes, probes, q)
+    bank = isc.ivf_probe_bank_cuda(*args)
+    parts = [isc.ivf_probe_bank_reference(index.data, index.rscales, index.sizes,
+                                          probes[lo : lo + block], q[lo : lo + block])
+             for lo in range(0, q.shape[0], block)]
+    plain = tuple([torch.cat([p[j][0] for p in parts])] for j in (0, 1))
+    torch.cuda.synchronize()
+    q16 = q.bfloat16().float()
+    err, n_diff = compare_bank(bank, plain, lambda qi, idx: (
+        q16[qi] * flat[idx].float()).sum(1) * fsc[idx])
+    bank_ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(*args))
+    live = int(index.sizes.long()[probes.long()].sum())
+    print(f"[{label}] phase4 1M {name} K7 int8 S=256 Q={q.shape[0]} nprobe={probes.shape[1]} "
+          f"M={index.data.shape[1]} probed_rows={live} max_abs_err={err:.3e} "
+          f"slot_idx_diff={n_diff} bank_ms={bank_ms:.4f} "
+          f"row_read_GBps={gbps(live * (DIM + 4), bank_ms)}", flush=True)
+    return err
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -560,13 +957,19 @@ def main(argv: list[str] | None = None) -> int:
         work = tempfile.mkdtemp(prefix="memex_smoke_")
         try:
             # Each kernel's launches come from its tier's main-path run:
-            # HTTP searches for K1 (float32) and K2 (int8+refine), the
-            # 1M-row searches for K3 and K4.
+            # HTTP searches for K1 (float32), K2 (int8+refine) and K5 (IVF),
+            # the 1M-row searches for K3 and K4, IVFIndex.search for K6, K7.
             http = {"fused_topk": phase2(label, args.seed, work, "vectors", "fused_topk"),
                     "fused_topk_int8q": phase2(label, args.seed, work,
                                                "vectors_q?dtype=int8&refine=true",
-                                               "fused_topk_int8q")}
+                                               "fused_topk_int8q"),
+                    "ivf_batch": phase2(label, args.seed, work,
+                                        "vectors_ivf?n_clusters=16&nprobe=4", "ivf_batch",
+                                        scheme="tpu+ivf", n_docs=1200)}
             launches = phase3(label, args.seed, work)
+            ivf_launches, ivf_stats = phase4(label, args.seed, work)
+            stats.update(ivf_stats)
+            launches.update(ivf_launches)
             launches.update(http)
         finally:
             shutil.rmtree(work, ignore_errors=True)

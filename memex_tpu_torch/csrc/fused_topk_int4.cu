@@ -178,15 +178,15 @@ int memex_fused_topk_int4q(const void* qa, const void* qb, const void* db_p,
   if (n_q <= 0 || d <= 0 || d % 32 || d > kMaxDim || n_slots <= 0 ||
       n_slots % memex::kScanWarps)
     return (int)cudaErrorInvalidValue;
-  const memex::ScanArgs a{scales8, scale_mul, alive,   out_v, out_i,
-                          out_v2,  out_i2,    n_q,     n_slots, limit};
+  const memex::ScanArgs a{scales8, scale_mul, alive, out_v, out_i, out_v2, out_i2, n_q, n_slots};
+  const memex::FlatWalk walk{limit, n_slots};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (deferred) {
     const DeferredOp op{static_cast<const float4*>(qa), static_cast<const float4*>(qb), db_p, d / 8};
-    return (int)memex::launch_scan_flags(op, a, keep2 != 0, s);
+    return (int)memex::launch_scan_flags(op, walk, a, keep2 != 0, s);
   }
   const ShiftOp op{static_cast<const uint32_t*>(qa), static_cast<const uint32_t*>(qb), db_p, d / 8};
-  return (int)memex::launch_scan_flags(op, a, keep2 != 0, s);
+  return (int)memex::launch_scan_flags(op, walk, a, keep2 != 0, s);
 }
 
 }  // extern "C"

@@ -73,62 +73,8 @@ struct Int8qOp {
 };
 
 // K3: float32 queries rounded to bf16 at staging, float4 tile, FP32 FMA.
-struct Int8Op {
-  using Row = RowWords;
-  using Acc = float;
-  const float4* q;  // [n_q, wpr] float32 queries, 4 per word of a row
-  const void* db;   // [n_rows, d] int8 rows
-  int wpr;
-
-  __host__ __device__ int row_bytes() const { return 4 * wpr; }
-  __host__ __device__ int tile_bytes(int kT) const { return 16 * kT * kTileWords; }
-
-  template <int kT>
-  __device__ void stage(char* tile, int q0, int nq) const {
-    float4* qs = reinterpret_cast<float4*>(tile);
-    for (int t = threadIdx.x; t < kT * kTileWords; t += blockDim.x) {
-      const int qq = t / kTileWords;
-      const int i = t - qq * kTileWords;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (qq < nq && i < wpr) {
-        v = q[(long long)(q0 + qq) * wpr + i];
-        v.x = memex::round_bf16(v.x);
-        v.y = memex::round_bf16(v.y);
-        v.z = memex::round_bf16(v.z);
-        v.w = memex::round_bf16(v.w);
-      }
-      qs[t] = v;
-    }
-  }
-
-  __device__ __forceinline__ void read(const char* st, int lane, Row& r) const {
-    memex::read_words(st, wpr, lane, r.w);
-  }
-
-  template <int kT>
-  __device__ __forceinline__ void partial(const Row& r, const char* tile, int lane,
-                                          float (&part)[kT]) const {
-    const float4* qs = reinterpret_cast<const float4*>(tile) + lane;
-    float x[kWords][4];
-#pragma unroll
-    for (int j = 0; j < kWords; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) x[j][k] = memex::byte_f32(r.w[j], k);
-#pragma unroll
-    for (int qq = 0; qq < kT; ++qq) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kWords; ++j) {
-        const float4 qv = qs[qq * kTileWords + 32 * j];
-        acc = fmaf(x[j][0], qv.x, acc);
-        acc = fmaf(x[j][1], qv.y, acc);
-        acc = fmaf(x[j][2], qv.z, acc);
-        acc = fmaf(x[j][3], qv.w, acc);
-      }
-      part[qq] = acc;
-    }
-  }
-};
+using Int8Op = memex::FloatTileOp<memex::Int8x4, true>;
+static_assert(Int8Op::kMaxDim == kMaxDim, "K2 and K3 take the same dims");
 
 // Rows stream in 16-byte copies: d must be a multiple of 16.
 bool bad_shape(int n_q, int d, int n_slots) {
@@ -153,8 +99,9 @@ int memex_fused_topk_int8q(const void* q8, const void* db, const float* scales,
                            int keep2, void* stream) {
   if (bad_shape(n_q, d, n_slots)) return (int)cudaErrorInvalidValue;
   const Int8qOp op{static_cast<const uint32_t*>(q8), db, d / 4};
-  const memex::ScanArgs a{scales, 1.f, alive, out_v, out_i, out_v2, out_i2, n_q, n_slots, limit};
-  return (int)memex::launch_scan_flags(op, a, keep2 != 0, static_cast<cudaStream_t>(stream));
+  const memex::ScanArgs a{scales, 1.f, alive, out_v, out_i, out_v2, out_i2, n_q, n_slots};
+  return (int)memex::launch_scan_flags(op, memex::FlatWalk{limit, n_slots}, a, keep2 != 0,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // K3. q [n_q, d] f32 (rounded to bf16 in the kernel); the rest as K2,
@@ -164,8 +111,9 @@ int memex_fused_topk_int8(const float* q, const void* db, const float* scales,
                           int n_slots, long long limit, void* stream) {
   if (bad_shape(n_q, d, n_slots)) return (int)cudaErrorInvalidValue;
   const Int8Op op{reinterpret_cast<const float4*>(q), db, d / 4};
-  const memex::ScanArgs a{scales, 1.f, alive, out_v, out_i, nullptr, nullptr, n_q, n_slots, limit};
-  return (int)memex::launch_scan_flags(op, a, false, static_cast<cudaStream_t>(stream));
+  const memex::ScanArgs a{scales, 1.f, alive, out_v, out_i, nullptr, nullptr, n_q, n_slots};
+  return (int)memex::launch_scan_flags(op, memex::FlatWalk{limit, n_slots}, a, false,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -137,8 +137,34 @@ def library() -> ctypes.CDLL:
                 c.c_longlong, c.c_int, c.c_int,  # limit, deferred, keep2
                 c.c_void_p,  # stream
             ]
+            lib.memex_ivf_batch.restype = c.c_int
+            lib.memex_ivf_batch.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,  # q, data, row_type, scales
+                c.c_void_p, c.c_void_p, c.c_void_p,  # sizes, walk, n_chunks
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # v, i, v2, i2
+                c.c_int, c.c_int, c.c_int, c.c_int,  # n_q, d, n_slots, m
+                c.c_int, c.c_int,  # exact, keep2
+                c.c_void_p,  # stream
+            ]
+            lib.memex_ivf_batch4.restype = c.c_int
+            lib.memex_ivf_batch4.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_void_p,  # q, data4, rscales4
+                c.c_void_p, c.c_void_p, c.c_void_p,  # sizes, walk, n_chunks
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,  # v, i, v2, i2
+                c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # n_q, d, n_slots, m, keep2
+                c.c_void_p,  # stream
+            ]
+            lib.memex_ivf_probe.restype = c.c_int
+            lib.memex_ivf_probe.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,  # q, data, row_type, scales
+                c.c_void_p, c.c_void_p,  # sizes, probes
+                c.c_void_p, c.c_void_p,  # v, i
+                c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # n_q, nprobe, d, n_slots, m
+                c.c_void_p,  # stream
+            ]
             for name in ("memex_fused_topk_max_dim", "memex_fused_topk_int8_max_dim",
-                         "memex_fused_topk_int4q_max_dim"):
+                         "memex_fused_topk_int4q_max_dim", "memex_ivf_batch_max_dim",
+                         "memex_ivf_batch4_max_dim", "memex_ivf_probe_max_dim"):
                 getattr(lib, name).restype = c.c_int
                 getattr(lib, name).argtypes = []
             _lib = lib

@@ -35,10 +35,11 @@ _LANES = 128
 # vs 127 levels), a float32 multiply as in memex_tpu.
 INT4_SCALE = float(np.float32(127.0 / 7.0))
 
-# Kernel launches made in this process, by kernel. Callers reset and read
-# them to prove a path went through a CUDA kernel; only a launch counts.
+# Kernel launches made in this process, by kernel (the IVF scans of
+# ops/ivf_*.py count here too). Callers reset and read them to prove a path
+# went through a CUDA kernel; only a launch counts.
 LAUNCHES = dict.fromkeys(("fused_topk", "fused_topk_int8q", "fused_topk_int8",
-                          "fused_topk_int4q"), 0)
+                          "fused_topk_int4q", "ivf_batch", "ivf_batch4", "ivf_probe"), 0)
 
 
 def reset_launches() -> None:

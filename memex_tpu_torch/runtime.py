@@ -3,9 +3,9 @@
 memex_tpu.runtime.Runtime is JAX-free at import but builds its engine,
 batcher and stores from the JAX package. This subclass overrides exactly
 those seams (`engine`, `search_batcher`, `store`, `checkpoint_all`,
-`drop_store`) and inherits the rest: `db`, `encode_doc`, `add_vectors`
-and the checkpoint cadence. (No store of the port schedules maintenance
-tasks: the flat tier compacts inline.) The API server
+`drop_store`) and inherits the rest: `db`, `encode_doc`, `add_vectors`,
+maintenance scheduling (`_enqueue_maintenance`) and the checkpoint
+cadence. The API server
 (`memex_tpu.api.server.create_app/start_async`) and the worker
 (`memex_tpu.worker.Worker`) take a TorchRuntime as they take a Runtime.
 """
@@ -64,11 +64,15 @@ class TorchRuntime(Runtime):
         return super().llm
 
     def store(self, collection: str):
-        """The collection's store on this runtime's device. On first touch
-        per process, an empty (or partially restored) store is rebuilt from
-        SQL under a per-collection lock, as memex_tpu's Runtime.store does."""
+        """The collection's store on this runtime's device, its maintenance
+        wired to the worker queue. On first touch per process, an empty (or
+        partially restored) store is rebuilt from SQL under a per-collection
+        lock, as memex_tpu's Runtime.store does."""
         store = get_vector_storage(self.settings.vector_uri, collection,
                                    dim=self.settings.embedding_dim, device=self.device)
+        # O(corpus) maintenance (IVF retrains) runs as worker Maintain tasks.
+        if getattr(store, "on_maintenance", "absent") is None:
+            store.on_maintenance = self._enqueue_maintenance
         if collection not in self._rebuilt:
             with self._lock:
                 rl = self._recovery_locks.setdefault(collection, threading.RLock())

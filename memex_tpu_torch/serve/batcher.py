@@ -9,10 +9,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from memex_tpu.log import get_logger
 from memex_tpu.serve.batcher import SearchBatcher as _SearchBatcher
 from memex_tpu.store.base import SearchHit
 
 from .query_path import _Q_BUCKETS, FusedQueryPath, _bucket
+
+logger = get_logger(__name__)
 
 
 class SearchBatcher(_SearchBatcher):
@@ -26,17 +29,27 @@ class SearchBatcher(_SearchBatcher):
 
     def warmup(self, collection: str, k: int = 10,
                seq_lens: tuple[int, ...] = (32,)) -> int:
-        """Run every Q bucket up to the one covering max_batch once, for the
-        fused path; non-fused stores warm through search_batch."""
+        """Run every Q bucket up to the one covering max_batch once: the
+        fused path for flat stores, search_batch for the other device
+        stores (IVF). Returns the batch shapes run."""
         store = self.rt.store(collection)
         fused = self._fused_path()
         top = _bucket(self._mb.max_batch, _Q_BUCKETS)
         buckets = tuple(b for b in _Q_BUCKETS if b <= top)
         if fused.supports(store):
             return fused.warmup(store, k=k, seq_lens=seq_lens, q_buckets=buckets)
-        # HNSW and remote stores have nothing on the device to warm (and a
-        # remote warmup would send real traffic).
-        return 0
+        # Other stores of the port (IVF) warm through the search_batch path
+        # the dispatch loop uses, at every Q bucket. HNSW and remote stores
+        # have no index on the device (and a remote warmup would send real
+        # traffic).
+        index = getattr(store, "index", None)
+        if index is None or getattr(index, "count", 0) == 0:
+            return 0
+        dim = getattr(store, "dim", None) or index.dim
+        for B in buckets:
+            store.search_batch(np.zeros((B, dim), np.float32), k)
+        logger.info("non-fused store warm: %d batch shapes", len(buckets))
+        return len(buckets)
 
     def _dispatch(self, items: list[tuple[str, str, int]]):
         """Stage 1: group by collection and queue the device work. Returns

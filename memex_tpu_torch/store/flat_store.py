@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -31,6 +32,33 @@ def _normalize(vectors: np.ndarray) -> np.ndarray:
 class TpuFlatStore:
     """Flat exact store (the default `tpu://` tier), on `device`. The class
     keeps memex_tpu's name: the scheme and the on-disk layout are the same."""
+
+    # Maintenance scheduling: when the runtime wires `on_maintenance`,
+    # O(corpus) work (IVF retrains) is enqueued as a worker Maintain task
+    # instead of running inline on whichever request tripped the trigger.
+    # Class attributes, so every store subclass inherits them.
+    on_maintenance = None        # callable(collection, reason) | None
+    _maintenance_last = 0.0      # time-windowed dedup, not a latch: a failed
+    #                              Maintain task must not suppress scheduling
+
+    def request_maintenance(self, reason: str) -> bool:
+        """Schedule background maintenance; True if scheduled (or requested
+        in the last 5 s: the queue dedups pending tasks too). False: no
+        scheduler is wired, and the caller does the work inline."""
+        cb = self.on_maintenance
+        if cb is None:
+            return False
+        now = time.monotonic()
+        if now - self._maintenance_last < 5.0:
+            return True
+        self._maintenance_last = now
+        try:
+            cb(self.collection, reason)
+        except Exception:
+            logger.exception("maintenance scheduling failed for %s", self.collection)
+            self._maintenance_last = 0.0
+            return False
+        return True
 
     def __init__(self, base_dir: str | None, collection: str, dim: int = 384,
                  dtype: str | None = None, *, device: torch.device | str, **kw):
@@ -85,7 +113,7 @@ class TpuFlatStore:
             self.index.delete_all()
             self._doc_of.clear()
             if self._path:
-                FlatIndex.remove_checkpoint(self._path)
+                type(self.index).remove_checkpoint(self._path)
 
     def checkpoint(self) -> None:
         if self._path:

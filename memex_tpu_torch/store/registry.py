@@ -4,10 +4,12 @@ memex_tpu/store/registry.py).
 The schemes are memex_tpu's, so an existing deployment's
 VECTOR_CONNECTION works unchanged:
   - `tpu://<dir>`      the port's flat store on the runtime's device
+  - `tpu+ivf://<dir>`  the port's IVF store on the runtime's device, e.g.
+                       `tpu+ivf://./data?n_clusters=1024&nprobe=64&dtype=int8`
   - `memory://`        the port's in-memory store
   - `hnsw://<dir>`     memex_tpu's native C++ HNSW store (no JAX in it)
   - `memex+http(s)://` memex_tpu's remote store (no JAX in it)
-The IVF and mesh schemes are not ported yet and raise.
+The mesh schemes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import torch
 DEFAULT_DIM = 384  # MiniLM-L12 output
 
 _NOT_PORTED = {
-    "tpu+ivf": "ROADMAP.md queue 1 item 11 (IVF, kernels K5-K7)",
     "tpu+mesh": "ROADMAP.md queue 1 item 12 (sharded tiers)",
     "tpu+ivf+mesh": "ROADMAP.md queue 1 item 12 (sharded tiers)",
 }
@@ -92,6 +93,10 @@ def _build_store(uri: str, collection: str, dim: int, device: torch.device):
         from .flat_store import TpuFlatStore
 
         return TpuFlatStore(path, collection, dim=dim, device=device, **opts)
+    if scheme == "tpu+ivf":
+        from .ivf_store import TpuIVFStore
+
+        return TpuIVFStore(path, collection, dim=dim, device=device, **opts)
     if scheme == "memory":
         from .flat_store import MemoryStore
 

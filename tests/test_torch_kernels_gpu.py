@@ -1,5 +1,5 @@
-"""The CUDA kernels (memex_tpu_torch/csrc/fused_topk*.cu: K1-K4) against
-their plain PyTorch versions on the card. Marked `gpu`: without a CUDA
+"""The CUDA kernels (memex_tpu_torch/csrc/fused_topk*.cu: K1-K4; ivf_*.cu:
+K5-K7) against their plain PyTorch versions on the card. Marked `gpu`: without a CUDA
 card every test here skips. Run on a card with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -183,3 +183,180 @@ def test_flat_index_on_the_card_matches_cpu(cuda, tier, kernel):
     for a, b in zip(hg, hc):
         assert [s for s, _ in a] == [s for s, _ in b]
         np.testing.assert_allclose([v for _, v in a], [v for _, v in b], atol=SCORE_TOL)
+
+
+# -- the IVF scans: K5 (csrc/ivf_batch.cu), K6 (ivf_batch4.cu), K7 (ivf_scan.cu) --
+
+IVF_C, IVF_M = 64, 2048
+
+
+def _ivf_table(cuda, seed=4):
+    """Ragged buckets with empty and full clusters, and a routed union."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    sizes = torch.randint(0, IVF_M + 1, (IVF_C,), generator=gen, device=cuda).to(torch.int32)
+    sizes[:3] = 0
+    sizes[3] = IVF_M
+    sizes[4] = 1025
+    rows = _unit(gen, IVF_C * IVF_M, cuda).reshape(IVF_C, IVF_M, D)
+    centroids = _unit(gen, IVF_C, cuda)
+    return gen, sizes, rows, centroids
+
+
+def _bank_check(bank, plain, score_of):
+    """Bank values within SCORE_TOL slot by slot; an index may differ only
+    where the kernel's row scores what the kernel holds (a near-tie)."""
+    for kv, ki, pv, pi in zip(bank[0], bank[1], plain[0], plain[1], strict=True):
+        assert (kv - pv).abs().max().item() <= SCORE_TOL
+        live = kv > -1e29
+        assert torch.equal(live, pv > -1e29)
+        diff = live & (ki != pi)
+        if diff.any():
+            qi, slot = torch.nonzero(diff, as_tuple=True)
+            got = score_of(qi, ki[qi, slot].long())
+            assert (got - kv[qi, slot]).abs().max().item() <= SCORE_TOL
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+@pytest.mark.parametrize("keep2", [False, True])
+@pytest.mark.parametrize("dtype,exact", [("float32", False), ("float32", True),
+                                         ("bfloat16", False), ("int8", False)])
+@pytest.mark.parametrize("banks", [4, 8])
+def test_ivf_batch_kernel_matches_plain(cuda, banks, dtype, exact, keep2, q_n):
+    from memex_tpu_torch.ops import ivf_batch as ib
+
+    gen, sizes, rows, centroids = _ivf_table(cuda)
+    if dtype == "int8":
+        codes, sc = ft.quantize_rows_int8(rows.reshape(-1, D))
+        data, rscales = codes.reshape(IVF_C, IVF_M, D), sc.reshape(IVF_C, IVF_M)
+    else:
+        data = rows.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        rscales = torch.ones((IVF_C, IVF_M), device=cuda)
+    q = _unit(gen, q_n, cuda)
+    clist, nact = ib.route_union(centroids, q, 24)
+    walk, n_chunks = ib._chunk_walk(sizes, clist, nact, IVF_M, banks * 128)
+    kw = dict(banks=banks, exact=exact, keep2=keep2)
+    before = ft.LAUNCHES["ivf_batch"]
+    bank = ib.ivf_batch_bank_cuda(data, rscales, sizes, walk, n_chunks, q, **kw)
+    assert ft.LAUNCHES["ivf_batch"] == before + 1
+    plain = ib.ivf_batch_bank_reference(data, rscales, sizes, walk, n_chunks, q, **kw)
+    torch.cuda.synchronize()
+    full = exact and dtype == "float32"
+
+    def score_of(qi, idx):
+        qq = q[qi] if full else q[qi].bfloat16().float()
+        rr = data.reshape(-1, D)[idx].float()
+        if not full:
+            rr = rr.bfloat16().float()
+        return (qq * rr).sum(1) * rscales.reshape(-1)[idx]
+
+    _bank_check(bank, plain, score_of)
+    ki = torch.cat(bank[1], dim=1).long()
+    live = torch.cat(bank[0], dim=1) > -1e29
+    assert ((ki % IVF_M) < sizes[ki // IVF_M])[live].all()
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_ivf_batch4_kernel_matches_plain(cuda, keep2, q_n):
+    from memex_tpu_torch.ops import ivf_batch as ib
+    from memex_tpu_torch.ops import ivf_batch4 as ib4
+
+    gen, sizes, rows, centroids = _ivf_table(cuda, seed=5)
+    codes, sc = ft.quantize_rows_int8(rows.reshape(-1, D))
+    codes, sc = codes.reshape(IVF_C, IVF_M, D), sc.reshape(IVF_C, IVF_M)
+    data4, rscales4 = ib4.pack_int4_buckets(codes, sc, banks=8)
+    q = _unit(gen, q_n, cuda)
+    clist, nact = ib.route_union(centroids, q, 24)
+    walk, n_chunks = ib._chunk_walk(sizes, clist, nact, IVF_M, 1024)
+    before = ft.LAUNCHES["ivf_batch4"]
+    bank = ib4.ivf_batch4_bank_cuda(data4, rscales4, sizes, walk, n_chunks, q, banks=8,
+                                    keep2=keep2)
+    assert ft.LAUNCHES["ivf_batch4"] == before + 1
+    plain = ib4.ivf_batch4_bank_reference(data4, rscales4, sizes, walk, n_chunks, q, banks=8,
+                                          keep2=keep2)
+    torch.cuda.synchronize()
+    hi4 = torch.clamp((codes.reshape(-1, D).to(torch.int32) + 8) >> 4, -7, 7).float()
+
+    def score_of(qi, idx):
+        return (q[qi].bfloat16().float() * hi4[idx]).sum(1) * rscales4.reshape(-1)[idx]
+
+    _bank_check(bank, plain, score_of)
+    vals, cl, sl = ib4.ivf_batch_search4(centroids, data4, rscales4, codes, sc, sizes, q, 24,
+                                         10, banks=8, keep2=keep2)
+    assert ((sl < sizes[cl.long()]) | (vals <= -1e29)).all()
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ivf_probe_kernel_matches_plain(cuda, dtype, q_n):
+    from memex_tpu_torch.index.ivf import _route
+    from memex_tpu_torch.ops import ivf_scan as isc
+
+    gen, sizes, rows, centroids = _ivf_table(cuda, seed=6)
+    if dtype == "int8":
+        codes, sc = ft.quantize_rows_int8(rows.reshape(-1, D))
+        data, rscales = codes.reshape(IVF_C, IVF_M, D), sc.reshape(IVF_C, IVF_M)
+    else:
+        data = rows.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        rscales = torch.ones((IVF_C, IVF_M), device=cuda)
+    q = _unit(gen, q_n, cuda)
+    probes = _route(centroids, q, 8).to(torch.int32)
+    before = ft.LAUNCHES["ivf_probe"]
+    bank = isc.ivf_probe_bank_cuda(data, rscales, sizes, probes, q)
+    assert ft.LAUNCHES["ivf_probe"] == before + 1
+    plain = isc.ivf_probe_bank_reference(data, rscales, sizes, probes, q)
+    torch.cuda.synchronize()
+
+    def score_of(qi, idx):
+        rr = data.reshape(-1, D)[idx].float().bfloat16().float()
+        return (q[qi].bfloat16().float() * rr).sum(1) * rscales.reshape(-1)[idx]
+
+    _bank_check(bank, plain, score_of)
+    ki = bank[1][0].long()
+    live = bank[0][0] > -1e29
+    own = (ki // IVF_M)[:, :, None] == probes.long()[:, None, :]
+    assert own.any(dim=2)[live].all()  # only the query's own probes
+
+
+@pytest.mark.parametrize("tier,kernel", [
+    (dict(dtype="float32"), "ivf_batch"),
+    (dict(dtype="float32", scan_precision="highest"), "ivf_batch"),
+    (dict(dtype="int8", refine=True), "ivf_batch"),
+    (dict(dtype="int8", scan_int4=True), "ivf_batch4"),
+], ids=["float32", "float32-highest", "int8-refine", "int8-int4"])
+def test_ivf_index_on_the_card_matches_cpu(cuda, tier, kernel):
+    """The CPU index's table installed on the card: the kernels' hits are
+    the plain versions'."""
+    from memex_tpu_torch.index.ivf import IVFIndex, ivf_state_from_numpy
+
+    rng = np.random.default_rng(1)
+    topics = rng.standard_normal((64, D)).astype(np.float32)
+    topics /= np.linalg.norm(topics, axis=1, keepdims=True)
+    # cos(row, topic) ~ 0.8 (bench.py's IVF corpus): neighbours' scores
+    # spread well past float32 noise.
+    vecs = topics[rng.integers(0, 64, 20000)] + 0.75 / D ** 0.5 * rng.standard_normal(
+        (20000, D)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    ids = [f"v{i}" for i in range(len(vecs))]
+    cpu = IVFIndex(D, n_clusters=32, nprobe=6, device="cpu", use_fused=True, **tier)
+    cpu.build(vecs, ids)
+    cpu.delete(ids[:30])
+    gpu = IVFIndex(D, n_clusters=32, nprobe=6, device=cuda, **tier)
+    assert gpu.use_fused
+    arrs = {name: getattr(cpu, name) for name in ("centroids", "rscales", "sizes", "resid",
+                                                    "resid_scales")}
+    arrs = {name: None if t is None else t.numpy() for name, t in arrs.items()}
+    ivf_state_from_numpy(gpu, data=cpu.data.float().numpy(), rowids=cpu.rowids, ids=cpu.ids,
+                         mean=cpu.mean, **arrs)
+    gpu.delete(ids[:30])
+    q = vecs[100:132]
+    before = ft.LAUNCHES[kernel]
+    hg, hc = gpu.search(q, 10), cpu.search(q, 10)
+    assert ft.LAUNCHES[kernel] == before + 1
+    # Ids may swap only among near-ties.
+    for a, b in zip(hg, hc):
+        np.testing.assert_allclose([v for _, v in a], [v for _, v in b], atol=SCORE_TOL)
+        cpu_score = dict(b)
+        for (sa, va), (sb, _) in zip(a, b):
+            if sa != sb:
+                assert abs(cpu_score.get(sa, b[-1][1]) - va) <= 2 * SCORE_TOL

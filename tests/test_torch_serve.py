@@ -58,9 +58,9 @@ def model_dir(tmp_path_factory):
     return path
 
 
-def _settings(tmp_path, name, model_dir, query=""):
+def _settings(tmp_path, name, model_dir, query="", scheme="tpu"):
     s = Settings.from_env(db_uri=f"sqlite://{tmp_path}/{name}.db",
-                          vector_uri=f"tpu://{tmp_path}/{name}_vectors{query}",
+                          vector_uri=f"{scheme}://{tmp_path}/{name}_vectors{query}",
                           embedding_model=model_dir)
     s.embedding_dim = DIM
     return s
@@ -110,13 +110,13 @@ def _check_same_hits(ref, got):
             assert abs(other - a["score"]) <= 2 * SCORE_TOL, (i, a, b)
 
 
-def _http_parity(tmp_path, model_dir, query=""):
+def _http_parity(tmp_path, model_dir, query="", scheme="tpu"):
     docs = _docs(1, 12)
     queries = docs[:4] + [" ".join(d.split()[:5]) for d in docs[4:8]]
     limit = 5
-    ref = _ingest_and_search(Runtime(_settings(tmp_path, "jax", model_dir, query)),
+    ref = _ingest_and_search(Runtime(_settings(tmp_path, "jax", model_dir, query, scheme)),
                              docs, queries, limit)
-    rt = TorchRuntime(_settings(tmp_path, "torch", model_dir, query), device="cpu")
+    rt = TorchRuntime(_settings(tmp_path, "torch", model_dir, query, scheme), device="cpu")
     got = _ingest_and_search(rt, docs, queries, limit)
     for q, r, g in zip(queries, ref, got):
         assert len(g) == len(r) == limit
@@ -136,6 +136,16 @@ def test_http_int8_refine_store_matches_jax(tmp_path, model_dir):
     rt = _http_parity(tmp_path, model_dir, "?dtype=int8&refine=true")
     index = rt.store("notes").index
     assert index.dtype == "int8" and index.refine and index.rerank == 128
+
+
+def test_http_ivf_store_matches_jax(tmp_path, model_dir):
+    """The same flow on a `tpu+ivf://` store (below its clustering floor,
+    so searches run its spill), searched through the batcher's non-fused
+    path with the maintenance hook wired."""
+    rt = _http_parity(tmp_path, model_dir, "?n_clusters=8&nprobe=2&dtype=int8", "tpu+ivf")
+    store = rt.store("notes")
+    assert type(store).__name__ == "TpuIVFStore" and store.index.dtype == "int8"
+    assert store.on_maintenance == rt._enqueue_maintenance
 
 
 def test_fused_query_path_int4_shift_matches_jax(model_dir, monkeypatch):
@@ -194,7 +204,7 @@ _ALONE = textwrap.dedent("""
 
     tmp = tempfile.mkdtemp(dir=sys.argv[2])
     s = Settings.from_env(db_uri=f"sqlite://{tmp}/t.db",
-                          vector_uri=f"tpu://{tmp}/vec?use_fused=1{sys.argv[5]}",
+                          vector_uri=f"{sys.argv[6]}://{tmp}/vec?use_fused=1{sys.argv[5]}",
                           embedding_model=sys.argv[3])
     s.embedding_dim = int(sys.argv[4])
     rt = TorchRuntime(s, device="cpu")
@@ -221,12 +231,13 @@ _ALONE = textwrap.dedent("""
 def test_port_alone_never_imports_jax(tmp_path, model_dir):
     """This process already imported jax (conftest), so the check runs in
     a fresh interpreter: a full ingest and search through the port, on a
-    float32 store and on an int8 store with refine."""
+    float32 store, on an int8 store with refine and on an IVF store."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    for query in ("", "&dtype=int8&refine=true"):
+    for scheme, query in (("tpu", ""), ("tpu", "&dtype=int8&refine=true"),
+                          ("tpu+ivf", "&n_clusters=4&dtype=int8")):
         out = subprocess.run([sys.executable, "-c", _ALONE, ROOT, str(tmp_path), model_dir,
-                              str(DIM), query], capture_output=True, text=True, timeout=300,
-                             env=env, cwd=str(tmp_path))
+                              str(DIM), query, scheme], capture_output=True, text=True,
+                             timeout=300, env=env, cwd=str(tmp_path))
         assert out.returncode == 0, out.stderr[-3000:]
         result = json.loads(out.stdout.strip().splitlines()[-1])
         assert result == {"hits": 1, "jax": False}
@@ -243,9 +254,14 @@ def test_registry_schemes(tmp_path):
     from memex_tpu_torch.store import registry
     from memex_tpu_torch.store.flat_store import MemoryStore, TpuFlatStore
 
-    for scheme in ("tpu+ivf", "tpu+mesh", "tpu+ivf+mesh"):
+    from memex_tpu_torch.store.ivf_store import TpuIVFStore
+
+    for scheme in ("tpu+mesh", "tpu+ivf+mesh"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.get_vector_storage(f"{scheme}://{tmp_path}/x", "c", device="cpu")
+    ivf = registry.get_vector_storage(f"tpu+ivf://{tmp_path}/i?n_clusters=8", "c", dim=8,
+                                      device="cpu")
+    assert isinstance(ivf, TpuIVFStore) and ivf.index.C == 8
     flat = registry.get_vector_storage(f"tpu://{tmp_path}/f?dtype=bfloat16&rerank=8",
                                        "c", dim=8, device="cpu")
     assert isinstance(flat, TpuFlatStore)
