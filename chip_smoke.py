@@ -12,10 +12,11 @@ result line) on any failed phase:
      index's shapes (1,048,576 x 384 rows, count = N - 12345, ~1% dead
      rows, Q in {1, 32, 128}), with kernel, bank-only and plain times:
      K1 (csrc/fused_topk.cu) on f32 and bf16 rows in the three exact/keep2
-     modes the float tiers use; K2 (int8 rows, int8 queries, S = 512,
-     keep2 off/on) and K4 in shift mode (int4 rows, S = 1024 and 2048,
-     keep2 off/on), both bit-equal to their plain versions; K3 (int8 rows,
-     bf16 queries, S = 1024) and K4 in deferred mode, within tolerance;
+     modes the float tiers use; K2 (int8 rows, int8 queries, S = 512 and
+     1024, keep2 off/on) and K4 in shift and in deferred mode (int4 rows,
+     S = 1024 and 2048, keep2 off/on), bit-equal to their plain versions,
+     also at Q in {2, 31, 33, 64}, around the widths of their tensor-core
+     tiles; K3 (int8 rows, bf16 queries, S = 1024) within tolerance;
   2. the HTTP server (`python -m memex_tpu_torch serve`) at full
      all-MiniLM-L12-v2 width with seeded random weights, on a float32
      store and on an int8+refine store (~200 documents each), then on a
@@ -71,6 +72,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_Q = 32  # the batch each kernel's line reports
+TIMED_Q = (1, 32, 128)
+# K2 and K4 are also checked around their tile widths: 16 queries a pair
+# of n-tiles, 32 a fold pass, more on further warps.
+TILE_Q = (1, 2, 31, 32, 33, 64, 128)
 N_ROWS = 1 << 20
 DIM = 384
 # Float kernels (K1, K3, K4's rerank) vs plain version: both sum 384
@@ -178,18 +183,6 @@ def gbps(n_bytes: int, ms: float) -> str:
     return f"{n_bytes / (ms * 1e-3) / 1e9:.1f}"
 
 
-def int_mm_ms(a, b_t, what: str) -> float | None:
-    """library_ms of an int8 x int8 product by torch._int_mm, or None where
-    its shape rules refuse these operands."""
-    import torch
-
-    try:
-        return cuda_ms(lambda: torch._int_mm(a, b_t))
-    except RuntimeError as exc:
-        print(f"library call torch._int_mm for {what} refused: {exc}", flush=True)
-        return None
-
-
 def columns(n_bytes: float, n_ops: float, kind: str, library: float | None) -> dict:
     """The kernels line's bound and library columns."""
     from memex_tpu_torch.scan_bench import bound
@@ -203,7 +196,7 @@ def phase1(label: str, seed: int) -> dict:
 
     from memex_tpu_torch import kernels
     from memex_tpu_torch.ops import fused_topk as ft
-    from memex_tpu_torch.scan_bench import k1_bound
+    from memex_tpu_torch.scan_bench import int_mm_ms, k1_bound, k2_bound, k4_bound, pack_int4
 
     t0 = time.perf_counter()
     path = kernels.build()
@@ -252,42 +245,48 @@ def phase1(label: str, seed: int) -> dict:
                          **main_cols}
 
     # int8 codes of the same rows; int4 codes packed row-major as the
-    # index stores them (byte j = 16 * code[j + D/2] + code[j]).
+    # index stores them (byte j = 16 * code[j + D/2] + code[j]), and the
+    # int4 codes themselves for K4's library_ms.
     codes, scales = ft.quantize_rows_int8(db32)
-    s4 = torch.clamp(db32.abs().amax(dim=1), min=1e-12) / 7.0
-    c4 = torch.clamp(torch.round(db32 / s4[:, None]), -7, 7).to(torch.int32)
-    packed = (c4[:, : DIM // 2] + 16 * c4[:, DIM // 2 :]).to(torch.int8).contiguous()
-    c4 = c4.to(torch.int8)  # the int4 codes, for K4's library_ms
-    del db32, s4
+    packed, c4 = pack_int4(db32)
+    del db32
     torch.cuda.empty_cache()
     row8, row4 = count * (DIM + 8), count * (DIM // 2 + 8)  # codes + scale + alive
 
-    # K2: bit-equal to its plain version, bank and top list.
+    # K2: bit-equal to its plain version, bank and top list, at the batch
+    # sizes around the tensor-core body's tile widths and both bank widths;
+    # timed at S = 512, the flat index's.
     res = {}
-    for keep2 in (False, True):
-        for Q in (1, 32, 128):
-            q = unit_rows(Q, DIM, gen, dev)
-            q8, _ = ft.quantize_rows_int8(q)
-            kw = dict(count=count, alive=alive, banks=4, keep2=keep2)
-            bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw)
-            plain = ft.int8q_bank_reference(codes, scales, q8, **kw)
-            bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"K2 bank keep2={keep2} Q={Q}")
-            kv, ki = ft.fused_score_topk_int8q(codes, scales, q, 128, **kw)
-            pv, pi = ft.fused_score_topk_int8q_reference(codes, scales, q, 128, **kw)
-            bit_equal([kv, ki], [pv, pi], f"K2 top list keep2={keep2} Q={Q}")
-            ms = cuda_ms(lambda: ft.fused_score_topk_int8q(codes, scales, q, 128, **kw))
-            bank_ms = cuda_ms(lambda: ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw))
-            p_ms = plain_ms(lambda: ft.fused_score_topk_int8q_reference(codes, scales, q, 128,
-                                                                       **kw))
-            print(f"[{label}] phase1 K2 int8q S=512 keep2={keep2} Q={Q} bit_equal=True "
-                  f"kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} "
-                  f"row_read_GBps={gbps(row8, bank_ms)}", flush=True)
-            res[(keep2, Q)] = (ms, p_ms)
-            if not keep2 and Q == MAIN_Q:
-                # All N rows (N % 8 == 0, as _int_mm asks); K2 scans `count`.
-                k2_cols = columns(live * (DIM + 4) + count * 4 + Q * (DIM + 4) + Q * 512 * 8,
-                                  2.0 * Q * live * DIM, "int8",
-                                  int_mm_ms(q8, codes.t(), "K2"))
+    for banks in (4, 8):
+        for keep2 in (False, True):
+            for Q in TILE_Q:
+                q = unit_rows(Q, DIM, gen, dev)
+                q8, _ = ft.quantize_rows_int8(q)
+                kw = dict(count=count, alive=alive, banks=banks, keep2=keep2)
+                what = f"S={banks * 128} keep2={keep2} Q={Q}"
+                bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw)
+                plain = ft.int8q_bank_reference(codes, scales, q8, **kw)
+                bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"K2 bank {what}")
+                kv, ki = ft.fused_score_topk_int8q(codes, scales, q, 128, **kw)
+                pv, pi = ft.fused_score_topk_int8q_reference(codes, scales, q, 128, **kw)
+                bit_equal([kv, ki], [pv, pi], f"K2 top list {what}")
+                if banks != 4 or Q not in TIMED_Q:
+                    print(f"[{label}] phase1 K2 int8q {what} bit_equal=True", flush=True)
+                    continue
+                ms = cuda_ms(lambda: ft.fused_score_topk_int8q(codes, scales, q, 128, **kw))
+                bank_ms = cuda_ms(lambda: ft.fused_score_bank_int8q_cuda(codes, scales, q8,
+                                                                         **kw))
+                p_ms = plain_ms(lambda: ft.fused_score_topk_int8q_reference(codes, scales, q,
+                                                                           128, **kw))
+                print(f"[{label}] phase1 K2 int8q {what} bit_equal=True "
+                      f"kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} "
+                      f"row_read_GBps={gbps(row8, bank_ms)}", flush=True)
+                res[(keep2, Q)] = (ms, p_ms)
+                if not keep2 and Q == MAIN_Q:
+                    # All N rows (N % 8 == 0, as _int_mm asks); K2 scans `count`.
+                    b_ms, b_by = k2_bound(Q, live, count, 512)
+                    k2_cols = {"bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": int_mm_ms(q8, codes.t(), "K2")}
     out["fused_topk_int8q"] = {"max_abs_err": 0.0, "ms": res[(False, MAIN_Q)][0],
                                "plain_ms": res[(False, MAIN_Q)][1], **k2_cols}
 
@@ -317,22 +316,30 @@ def phase1(label: str, seed: int) -> dict:
     out["fused_topk_int8"] = {"max_abs_err": worst, "ms": res[MAIN_Q][0],
                               "plain_ms": res[MAIN_Q][1], **k3_cols}
 
-    # K4: shift bit-equal; deferred (bf16 query operands) by compare_topk's
-    # rule on the reranked list, its bank's equality reported.
+    # K4: the bank bit-equal in both modes (each is an exact integer dot),
+    # at the same batch sizes and both bank widths; the reranked list by
+    # compare_topk's rule (its rerank sums float32 products).
     worst, res = 0.0, {}
     for banks in (8, 16):
         for deferred in (False, True):
+            mode = "deferred" if deferred else "shift"
             for keep2 in (False, True):
-                for Q in (1, 32, 128):
+                for Q in TILE_Q:
                     q = unit_rows(Q, DIM, gen, dev)
                     kw = dict(count=count, alive=alive, banks=banks, deferred=deferred,
                               keep2=keep2)
+                    what = f"{mode} S={banks * 128} keep2={keep2} Q={Q}"
                     bank = ft.int4q_candidates_cuda(packed, scales, q, **kw)
                     plain = ft.int4q_candidates_reference(packed, scales, q, **kw)
-                    same = all(torch.equal(a, b) for a, b in zip(bank, plain))
-                    if not deferred:
-                        check(same, f"K4 shift bank S={banks * 128} keep2={keep2} Q={Q}: "
-                                    "kernel and plain version differ")
+                    bit_equal(bank, plain, f"K4 bank {what}")
+                    # ... and so are the wrapper's query operands, which one
+                    # launch of the source's query-operand kernel makes.
+                    bit_equal(ft.int4_query_operands_cuda(q, deferred),
+                              ft._int4_query_operands(q, deferred), f"K4 query operands {what}")
+                    if Q not in TIMED_Q:
+                        print(f"[{label}] phase1 K4 int4 {what} bank_bit_equal=True",
+                              flush=True)
+                        continue
                     args = (packed, scales, codes, q, 10)
                     kv, ki = ft.fused_score_topk_int4_rerank(*args, **kw)
                     pv, pi = ft.fused_score_topk_int4_rerank_reference(*args, **kw)
@@ -343,20 +350,19 @@ def phase1(label: str, seed: int) -> dict:
                     bank_ms = cuda_ms(lambda: ft.int4q_candidates_cuda(packed, scales, q, **kw))
                     p_ms = plain_ms(lambda: ft.fused_score_topk_int4_rerank_reference(*args,
                                                                                       **kw))
-                    mode = "deferred" if deferred else "shift"
-                    print(f"[{label}] phase1 K4 int4 {mode} S={banks * 128} keep2={keep2} "
-                          f"Q={Q} bank_bit_equal={same} max_abs_err={err:.3e} "
+                    print(f"[{label}] phase1 K4 int4 {what} bank_bit_equal=True "
+                          f"max_abs_err={err:.3e} "
                           f"idx_diff={n_diff} kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) "
                           f"plain_ms={p_ms:.4f} row_read_GBps={gbps(row4, bank_ms)}",
                           flush=True)
                     res[(banks, deferred, keep2, Q)] = (ms, p_ms)
                     if banks == 8 and deferred and not keep2 and Q == MAIN_Q:
-                        # The bank's product: 2 * Q * D per row from D/2 bytes
-                        # (deferred: bf16 operands; _int_mm on the int4 codes).
+                        # The mode the main path runs at Q <= 64; _int_mm
+                        # on the int4 codes is the library's product.
                         q8, _ = ft.quantize_rows_int8(q)
-                        k4_cols = columns(
-                            live * (DIM // 2 + 4) + count * 4 + Q * DIM * 4 + Q * 1024 * 8,
-                            2.0 * Q * live * DIM, "bf16", int_mm_ms(q8, c4.t(), "K4"))
+                        b_ms, b_by = k4_bound(Q, live, count, 1024, deferred)
+                        k4_cols = {"bound_ms": b_ms, "bound_by": b_by,
+                                   "library_ms": int_mm_ms(q8, c4.t(), "K4")}
     main = res[(8, True, False, MAIN_Q)]
     out["fused_topk_int4q"] = {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1],
                                **k4_cols}

@@ -9,15 +9,17 @@
 // probed clusters for the IVF scans -- so its fold keeps the TPU's tie rule
 // (strict '>': the earlier column wins) without any merge across blocks.
 // Two bodies score the rows:
-//   - scan_kernel (SIMT, FP32 FMA; tiles of 32 queries, or one alone):
+//   - scan_kernel (SIMT, FP32 FMA; tiles of 32 queries, or one alone; the
+//     exact modes, K3, K6, K7, and K1's and K5's lone query):
 //     lane l scores its slice of the row against every query of the tile;
 //     the transpose-reduce then leaves lane l holding the whole score of
 //     query l, which lane l folds into the (query l, slot) pair it owns;
-//   - mma_scan_kernel (tensor cores, bf16 in, f32 accumulate; tiles of up
-//     to 128 queries): a producer warp brings the block's rows with bulk
-//     copies; each consumer warp scores 16 steps of its walk at a time with
-//     mma.sync.m16n8k16, parks the 16 x 32-query scores in shared memory,
-//     and lane l folds query l's 16 scores in step order.
+//   - mma_scan_kernel (tensor cores: bf16 or f16 in with f32 accumulate,
+//     or s8 in with s32 accumulate; tiles of up to 128 queries): a producer
+//     warp brings the block's rows with bulk copies; each consumer warp
+//     scores 16 steps of its walk at a time with mma.sync, parks the 16 x
+//     32-query scores in shared memory, and lane l folds query l's 16
+//     scores in step order.
 
 #pragma once
 
@@ -295,31 +297,6 @@ cudaError_t launch_scan_flags(const Op& op, const Walk& walk, const ScanArgs& a,
                     : launch_scan_tile<Op, Walk, kQT>(op, walk, a, keep2, stream);
 }
 
-// Stage a tile of kT queries, `stride` items per query (items past `per_q`
-// and queries past nq are zero): tile[qq * stride + i] = src[(q0 + qq) *
-// per_q + i].
-template <int kT, typename V>
-__device__ __forceinline__ void stage_tile(V* tile, const V* src, int per_q, int stride,
-                                           int q0, int nq, V zero) {
-  for (int t = threadIdx.x; t < kT * stride; t += blockDim.x) {
-    const int qq = t / stride;
-    const int i = t - qq * stride;
-    tile[t] = qq < nq && i < per_q ? src[(long long)(q0 + qq) * per_q + i] : zero;
-  }
-}
-
-// A lane's words of a row held in a ring stage: words lane, lane + 32, ...
-template <int kWords>
-__device__ __forceinline__ void read_words(const char* stage, int wpr, int lane,
-                                           uint32_t (&w)[kWords]) {
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(stage);
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    const int k = lane + 32 * j;
-    w[j] = k < wpr ? src[k] : 0u;
-  }
-}
-
 // Sign-extended byte k (0..3) of a 32-bit word, as a float (exact).
 __device__ __forceinline__ float byte_f32(uint32_t w, int k) {
   return static_cast<float>(static_cast<int>(w << (24 - 8 * k)) >> 24);
@@ -439,39 +416,50 @@ struct FloatTileOp {
 
 // -- The tensor-core body -------------------------------------------------------
 //
-// For tiles of more than one query in the non-exact modes (bf16 inputs,
-// f32 accumulate): K1 on float32 and bf16 rows, K5 on int8, bf16 and
-// float32 rows. The FP32 body above reads its float32 query tile from shared
-// memory once per row (48 KB a row for 32 queries at D = 384) and issues
-// every product on the FP32 pipe; this one
-//   - stages the block's query tile once, as bf16, up to 128 queries (kNT
-//     n-tiles of 8, kNT in {2, 4, 8, 16} by the batch), so a row leaves
-//     device memory once per batch of 128;
-//   - gives the block's W slots one producer warp: a block step, the rows
-//     of the W slots at one step of the walk, is W contiguous rows of the
-//     table (K1: columns u * S + s0 ...; K5: rows of one chunk), so one bulk
-//     copy (the Tensor Memory Accelerator) brings its live prefix into a
-//     ring stage, and an mbarrier says when it landed. The producer keeps
-//     up to kRing steps in flight while the W consumer warps score, so the
+// K1 on float32 and bf16 rows and K5 on int8, bf16 and float32 rows at two
+// queries or more in the non-exact modes (bf16 inputs, f32 accumulate:
+// MmaTileOp below); K2 on int8 rows against int8 queries (s8 x s8 -> s32,
+// fused_topk_int8.cu) and K4 on packed int4 rows in both its modes
+// (fused_topk_int4.cu) at every batch size. The SIMT body above reads its query tile from
+// shared memory once per row (12-48 KB a row for 32 queries at D = 384) and
+// issues every product on the FP32 or integer pipe; this one
+//   - stages the block's query tile once, up to 128 queries, in the
+//     product's input type, so a row leaves device memory once per batch of
+//     128;
+//   - gives the block's kW slots one producer warp: a block step, the rows
+//     of the kW slots at one step of the walk, is kW contiguous rows of the
+//     table (flat: columns u * S + s0 ...; K5: rows of one chunk), so one
+//     bulk copy (the Tensor Memory Accelerator) brings its live prefix into
+//     a ring stage, and an mbarrier says when it landed. The producer keeps
+//     up to kRing steps in flight while the consumer warps score, so the
 //     loads overlap the products instead of alternating with them;
-//   - has consumer warp w, which owns slot s0 + w, score 16 steps at a time
-//     with mma.sync.m16n8k16: A is its row of 16 stages, converted to bf16
-//     pairs (int8 codes and bf16 values exactly, float32 rounded to nearest
-//     even, as round_bf16), B the query tile, read with ldmatrix, so the
-//     query tile is read once per 16 rows, 2 bytes a value. Each k-step
-//     loads all its operands before its products;
-//   - keeps the fold exact: the 16 x kNT * 8 accumulators go, 32 queries at
-//     a time, to a per-warp 16 x 32 score tile in shared memory, each score
-//     times its row's scale, or -1e30 for a masked or dead step (a no-op in
-//     the fold), and lane l folds query l's 16 scores in step order through
-//     the same SlotBank. A group with no live step is neither scored nor
-//     folded. A step's column, scale and alive entry are read by one lane
-//     a group ahead, from device memory.
+//   - has a consumer warp, which owns one slot and one group of kNT * 8
+//     queries of the tile, score a group of 16 * kMT steps at a time with
+//     mma.sync: A is its slot's row in those stages, B the query tile, read
+//     with ldmatrix once per group. `Op` supplies the products (its operand
+//     types, the A conversion, the k-loop). Two m-tiles a group (K2, K4)
+//     give a lone warp on its scheduler two independent chains of products
+//     and halve the tile reads and barrier waits a row; they need a ring of
+//     more than 32 stages and 2 * kNT * 4 accumulators. With kG > 1 query groups
+//     a slot's rows are scored by kG warps, each on its own queries: more
+//     warps in flight where the bank has few slots (K2: S = 512), and the
+//     fold is untouched, since queries never meet in it;
+//   - keeps the fold exact: an m-tile's 16 x kNT * 8 accumulators go, 32
+//     queries at a time, to a per-warp 16 x 32 score tile in shared memory, each score
+//     one rounding of the dot times its row's scale, or -1e30 for a masked
+//     or dead step (a no-op in the fold), and lane l folds query l's 16
+//     scores in step order through the same SlotBank. A group with no live
+//     step is neither scored nor folded. A step's first column, its live
+//     rows and their scale and alive entries come with the stage: the
+//     producer reads them a batch ahead and writes them behind the rows, so
+//     no consumer waits on device memory for them (read by the consumers
+//     themselves, even two groups ahead, those loads cost K2 a fifth of
+//     its time at 32 queries).
 // Measured on the H100 (PERF.md, section 6): the per-warp cp.async rings this
 // replaced spent most of each warp's time issuing copies, so a warp's loads
 // and its products ran one after the other (their sum was the kernel's
-// time); stage strides padded past a multiple of 128 bytes keep the A reads
-// of a group's 8 + 8 steps in distinct banks.
+// time); stage strides at an odd multiple of 16 bytes past a multiple of 128
+// keep the A reads of a group's 8 + 8 steps in distinct banks.
 
 constexpr int kMmaSteps = 16;                    // steps per mma: its m
 constexpr int kMmaTileQ = 128;                   // queries per block tile at most
@@ -481,21 +469,22 @@ constexpr int kScoreStride = kFoldQ + 8;         // floats per step of the score
                                                  // without bank conflicts
 constexpr int kMmaMaxDim = 384;                  // the widest row the body takes
 constexpr int kMaxBlockSmem = 232448;            // shared memory a block may have
-constexpr int kWarpSmem = kMmaSteps * kScoreStride * 4 + kMmaSteps * 8;  // score tile, tails
-constexpr int kMaxRing = 48;
+constexpr int kMaxMT = 2;                        // m-tiles (16 steps) a group at most
+constexpr int kWarpSmem = kMmaSteps * kScoreStride * 4 + kMaxMT * kMmaSteps * 8;  // score tile, tails
+constexpr int kMaxRing = 48;                     // stages a ring holds at most, per m-tile of a group
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // to nearest even
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Row types of the tensor-core body: a pair of neighbouring elements as one
-// bf16x2 A register, the consumer warps of a block (float32 rows fit only 4
-// beside a 128-query tile; with 8, bf16 rows fit 17 stages there, and 8
-// warps with 17 stages measured 10% faster than 4 with 39), and kTail, the
-// padding of a ring stage past its rows.
+// Row types of the bf16 product: a pair of neighbouring elements as one
+// bf16x2 A register, the slots of a block (float32 rows fit only 4 beside a
+// 128-query tile; with 8, bf16 rows fit 17 stages there, and 8 warps with 17
+// stages measured 10% faster than 4 with 39), and kTail, the bytes of a ring
+// stage past its rows: the step's tail (stage_tail_bytes below) and padding.
 struct Int8Rows {
-  static constexpr int kElemBytes = 1, kWarps = 8, kTail = 16;
+  static constexpr int kElemBytes = 1, kWarps = 8, kTail = 80;
   // Without the conversion pipe: code v becomes the float 2^23 + (v + 128)
   // by placing the byte v ^ 0x80 under the exponent of 2^23, less 2^23 +
   // 128 gives v exactly, and a small integer's float has bf16 in its top
@@ -508,42 +497,16 @@ struct Int8Rows {
   }
 };
 struct Bf16Rows {
-  static constexpr int kElemBytes = 2, kWarps = 8, kTail = 16;
+  static constexpr int kElemBytes = 2, kWarps = 8, kTail = 80;
   __device__ __forceinline__ static uint32_t pair(const char* p) {
     return *reinterpret_cast<const uint32_t*>(p);
   }
 };
 struct F32Rows {
-  static constexpr int kElemBytes = 4, kWarps = 4, kTail = 32;
+  static constexpr int kElemBytes = 4, kWarps = 4, kTail = 96;
   __device__ __forceinline__ static uint32_t pair(const char* p) {
     const float2 v = *reinterpret_cast<const float2*>(p);
     return bf16x2(v.x, v.y);
-  }
-};
-
-// Ring stages that fit beside a tile of kNT n-tiles, at the widest row
-// (each stage: a row per consumer warp, the padding, two mbarriers).
-template <class Rows, int kNT>
-__host__ __device__ constexpr int mma_ring() {
-  const int fixed = kNT * 8 * (2 * kMmaMaxDim + 16) + Rows::kWarps * kWarpSmem;
-  const int stage = Rows::kWarps * Rows::kElemBytes * kMmaMaxDim + Rows::kTail + 16;
-  const int ring = (kMaxBlockSmem - fixed) / stage;
-  return ring > kMaxRing ? kMaxRing : ring;
-}
-
-// float32 queries and rows of d elements (d % 16 == 0) for the body.
-template <class Rows>
-struct MmaTileOp {
-  const float* q;  // [n_q, d]
-  const void* db;  // rows of d elements
-  int d;
-
-  __host__ __device__ int row_bytes() const { return Rows::kElemBytes * d; }
-  // A bf16 query row plus 16 bytes: ldmatrix's 8 rows land in distinct banks.
-  __host__ __device__ int tile_stride() const { return 2 * d + 16; }
-  __host__ __device__ int stage_bytes(int w) const { return w * row_bytes() + Rows::kTail; }
-  __host__ __device__ int smem_bytes(int n_tiles, int w, int ring) const {
-    return n_tiles * 8 * tile_stride() + ring * (stage_bytes(w) + 16) + w * kWarpSmem;
   }
 };
 
@@ -553,13 +516,147 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
                : "r"(addr));
 }
 
-// d += a * b for one 16 x 8 tile: bf16 in, f32 accumulate.
+// d += a * b for one 16 x 8 tile, k = 16: bf16 in, f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b for one 16 x 8 tile, k = 32: s8 in (four codes along k a
+// register), s32 accumulate: exact.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// This lane's ldmatrix row for a pair of n-tiles of a [query][k] tile whose
+// queries are `stride` bytes apart, at k byte 0 of query `qbase` on: lanes
+// 0-7 address n-tile j's 8 queries at 16 bytes of k, 8-15 the same queries
+// at the next 16 bytes, 16-31 n-tile j + 1. The four registers are then the
+// B fragments of the two n-tiles for one k-step of 32 bytes (16 bf16 or
+// f16 values, or 32 int8 codes: a b16 matrix's row of 8 is 16 codes, and a
+// lane's register holds four along k, as mma_s8 wants them).
+__device__ __forceinline__ unsigned b_lane_addr(unsigned tile, int stride, int qbase, int lane) {
+  return tile + (qbase + (lane & 7) + 8 * (lane >> 4)) * stride + 16 * ((lane >> 3) & 1);
+}
+
+// Int8 queries in a tile: a query's d codes, zero up to the next multiple
+// of `to` (a power of two: the codes a pass of the k-loop takes, so a d that
+// is only a multiple of 16 ends on zero products). A tile row of one or two
+// such parts plus 16 bytes is an odd multiple of 16 bytes: ldmatrix's 8
+// rows land in distinct banks.
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) & ~(to - 1); }
+
+// Stage int8 queries [n_q, d] (d % 16 == 0, rows 16-byte aligned) as the
+// part at `tile` of a tile whose tq queries are `stride` bytes apart, zero
+// from d to `padded` and past nq.
+__device__ __forceinline__ void stage_s8_tile(char* tile, int stride, const char* src, int d,
+                                              int padded, int q0, int nq, int tq) {
+  const int units = padded / 16;
+  for (int t = threadIdx.x; t < tq * units; t += blockDim.x) {
+    const int qq = t / units;
+    const int i = t - qq * units;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (qq < nq && 16 * i < d)
+      v = *reinterpret_cast<const uint4*>(src + (long long)(q0 + qq) * d + 16 * i);
+    *reinterpret_cast<uint4*>(tile + qq * stride + 16 * i) = v;
+  }
+}
+
+// What the body asks of an Op (MmaTileOp below; Int8qMmaOp, ShiftMmaOp and
+// DeferredMmaOp in fused_topk_int8.cu and fused_topk_int4.cu):
+//   Op::Acc                     float or int accumulators
+//   Op::kTail                   bytes of a ring stage past its rows: at
+//                               least stage_tail_bytes(kW), a multiple of 16
+//   Op::kMaxRowBytes, Op::max_tile_bytes(tq)   at the widest row, to size the ring
+//   op.db, op.row_bytes()       the rows (a multiple of 16 bytes each)
+//   op.tile_bytes(tq)           of the staged tile of tq queries
+//   op.stage_tile(tile, q0, nq, tq)            all threads of the block
+//   op.products<kNT, kMT>(acc, ar, tile, qbase, lane)
+//       kMT m-tiles a group: a warp scores 16 * kMT steps at a time, and a B
+//       fragment read serves them all;
+//       acc[t] += the warp's rows at steps 16t + lane / 4 (ar[2t]) and 16t +
+//       lane / 4 + 8 (ar[2t + 1]) against queries qbase .. qbase + kNT * 8
+//       of the tile, in mma.sync's fragment layout (acc[t][j][0..1]: step
+//       16t + lane / 4, queries 8j + 2 * (lane % 4) and the next;
+//       acc[t][j][2..3]: step 16t + lane / 4 + 8).
+
+// float32 queries and rows of d elements (d % 16 == 0) for the bf16 product.
+template <class Rows>
+struct MmaTileOp {
+  using Acc = float;
+  static constexpr int kTail = Rows::kTail;
+  static constexpr int kMaxRowBytes = Rows::kElemBytes * kMmaMaxDim;
+  __host__ __device__ static constexpr int max_tile_bytes(int tq) {
+    return tq * (2 * kMmaMaxDim + 16);
+  }
+  const float* q;  // [n_q, d]
+  const void* db;  // rows of d elements
+  int d;
+
+  __host__ __device__ int row_bytes() const { return Rows::kElemBytes * d; }
+  // A bf16 query row plus 16 bytes: ldmatrix's 8 rows land in distinct banks.
+  __host__ __device__ int tile_stride() const { return 2 * d + 16; }
+  __host__ __device__ int tile_bytes(int tq) const { return tq * tile_stride(); }
+
+  // The query tile as bf16, zero rows past nq.
+  __device__ __forceinline__ void stage_tile(char* tile, int q0, int nq, int tq) const {
+    const int hd = d / 2;
+    const int tstride = tile_stride();
+    for (int t = threadIdx.x; t < tq * hd; t += blockDim.x) {
+      const int qq = t / hd;
+      const int p = t - qq * hd;
+      float2 v = make_float2(0.f, 0.f);
+      if (qq < nq) v = reinterpret_cast<const float2*>(q)[(long long)(q0 + qq) * hd + p];
+      *reinterpret_cast<uint32_t*>(tile + qq * tstride + 4 * p) = bf16x2(v.x, v.y);
+    }
+  }
+
+  // A is converted to bf16 pairs (int8 codes and bf16 values exactly,
+  // float32 rounded to nearest even, as round_bf16); each k-step loads all
+  // its operands before its products.
+  template <int kNT, int kMT>
+  __device__ __forceinline__ void products(float (&acc)[kMT][kNT][4],
+                                           const char* const (&rows)[2 * kMT], unsigned tile,
+                                           int qbase, int lane) const {
+    static_assert(kMT == 1, "a 128-query bf16 tile leaves the ring no room for 32-step groups");
+    constexpr int kEB = Rows::kElemBytes;
+    const int tstride = tile_stride();
+    const unsigned b_lane = b_lane_addr(tile, tstride, qbase, lane);
+    const char* const ar = rows[0] + 2 * (lane & 3) * kEB;  // columns 2c, 2c + 1 of the fragment
+    const char* const ar8 = rows[1] + 2 * (lane & 3) * kEB;
+#pragma unroll 2
+    for (int k0 = 0; k0 < d; k0 += 16) {
+      const int e = k0 * kEB;
+      const uint32_t af[4] = {Rows::pair(ar + e), Rows::pair(ar8 + e),
+                              Rows::pair(ar + e + 8 * kEB), Rows::pair(ar8 + e + 8 * kEB)};
+      uint32_t bf[kNT / 2][4];
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j) ldmatrix_x4(bf[j], b_lane + j * 16 * tstride + 2 * k0);
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j) {
+        mma_bf16(acc[0][2 * j], af, bf[j][0], bf[j][1]);
+        mma_bf16(acc[0][2 * j + 1], af, bf[j][2], bf[j][3]);
+      }
+    }
+  }
+};
+
+// Ring stages that fit beside a tile of tq queries and the score tiles of
+// kW * kG consumer warps, at the widest row (each stage: a row per slot,
+// the padding, two mbarriers).
+template <class Op, int kW, int kG, int kMT>
+__host__ __device__ constexpr int mma_ring(int tq) {
+  const int fixed = Op::max_tile_bytes(tq) + kW * kG * kWarpSmem;
+  const int stage = kW * Op::kMaxRowBytes + Op::kTail + 16;
+  const int ring = (kMaxBlockSmem - fixed) / stage;
+  return ring > kMT * kMaxRing ? kMT * kMaxRing : ring;
 }
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
@@ -596,14 +693,26 @@ struct StepTail {
   float mul;
 };
 
-template <class Rows, int kNT, class Walk, bool kKeep2, bool kAlive>
-__global__ void __launch_bounds__((Rows::kWarps + 1) * 32)
-mma_scan_kernel(const MmaTileOp<Rows> op, const Walk walk, const ScanArgs a) {
-  static_assert(kNT % 2 == 0 && kNT * 8 <= kMmaTileQ, "n-tiles come in pairs");
-  constexpr int kW = Rows::kWarps;
-  constexpr int kRing = mma_ring<Rows, kNT>();
-  static_assert(kRing > kMmaSteps, "the ring holds a group and more");
-  constexpr int kEB = Rows::kElemBytes;
+// A block step's tail in its ring stage, behind the kW rows: the scale and
+// the alive entry of each row (1 where the scan has none), then the first
+// row's column and how many of the kW, a prefix, are live.
+__host__ __device__ constexpr int stage_tail_bytes(int kW) { return 8 * kW + 8; }
+
+// kW slots a block, kG query groups of kNT n-tiles (8 queries) each: kW *
+// kG consumer warps and the producer; kMT m-tiles (16 steps) a group.
+template <class Op, int kW, int kNT, int kG, int kMT, class Walk, bool kKeep2, bool kAlive>
+__global__ void __launch_bounds__((kW * kG + 1) * 32)
+mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
+  static_assert(kNT % 2 == 0 && kNT * 8 * kG <= kMmaTileQ, "n-tiles come in pairs");
+  static_assert(kW * kG + 1 <= 32, "a block has at most 1,024 threads");
+  static_assert(kW % 4 == 0 && Op::kTail % 16 == 0 && Op::kTail >= stage_tail_bytes(kW),
+                "a stage holds its step's tail behind the rows, 16-byte aligned");
+  using Acc = typename Op::Acc;
+  constexpr int kSteps = kMT * kMmaSteps;  // steps a group: one a lane at most
+  static_assert(kMT >= 1 && kMT <= kMaxMT, "a lane waits for one step of a group");
+  constexpr int kTileQ = kNT * 8 * kG;
+  constexpr int kRing = mma_ring<Op, kW, kG, kMT>(kTileQ);
+  static_assert(kRing > kSteps, "the ring holds a group and more");
   constexpr int kPasses = (kNT * 8 + kFoldQ - 1) / kFoldQ;
   extern __shared__ uint4 smem_raw[];
   char* const tile = reinterpret_cast<char*>(smem_raw);
@@ -611,179 +720,184 @@ mma_scan_kernel(const MmaTileOp<Rows> op, const Walk walk, const ScanArgs a) {
   const int warp = threadIdx.x >> 5;
   const int s0 = blockIdx.x * kW;
   const int q0 = blockIdx.y * kMmaTileQ;
-  const int nq = min(kNT * 8, a.n_q - q0);
-  const int d = op.d;
-  const int tstride = op.tile_stride();
+  const int nq = min(kTileQ, a.n_q - q0);
   const int row_bytes = op.row_bytes();
-  const int sbytes = op.stage_bytes(kW);
-  char* const ring = tile + kNT * 8 * tstride;
+  const int sbytes = kW * row_bytes + Op::kTail;
+  char* const ring = tile + op.tile_bytes(kTileQ);
   char* const warps_smem = ring + kRing * sbytes;
-  const unsigned full = smem_addr(warps_smem + kW * kWarpSmem);  // [kRing]: a stage landed
-  const unsigned empty = full + 8 * kRing;                       // [kRing]: a stage was read
+  const unsigned full = smem_addr(warps_smem + kW * kG * kWarpSmem);  // [kRing]: a stage landed
+  const unsigned empty = full + 8 * kRing;                            // [kRing]: a stage was read
   const char* const rows = static_cast<const char*>(op.db);
-  const long long nb = walk.steps(s0, q0);  // the block's steps: its first slot's
+  // The block's steps: its first slot's (columns are int32, so steps are).
+  const int nb = static_cast<int>(walk.steps(s0, q0));
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRing; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kW);
+      mbar_init(empty + 8 * s, kW * kG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // The query tile as bf16, zero rows past nq.
-  {
-    const int hd = d / 2;
-    for (int t = threadIdx.x; t < kNT * 8 * hd; t += blockDim.x) {
-      const int qq = t / hd;
-      const int p = t - qq * hd;
-      float2 v = make_float2(0.f, 0.f);
-      if (qq < nq) v = reinterpret_cast<const float2*>(op.q)[(long long)(q0 + qq) * hd + p];
-      *reinterpret_cast<uint32_t*>(tile + qq * tstride + 4 * p) = bf16x2(v.x, v.y);
-    }
-  }
+  op.stage_tile(tile, q0, nq, kTileQ);
   __syncthreads();
 
-  if (warp == kW) {
-    // The producer. Its lanes read 32 steps' rows from the walk together;
-    // lane 0 then issues them in order, each into a stage the consumers
-    // have released.
-    for (long long ub = 0; ub < nb; ub += 32) {
-      long long col0 = 0;
-      const int live = ub + lane < nb ? walk.block_rows(s0, q0, ub + lane, kW, col0) : 0;
-      const int cnt = nb - ub < 32 ? static_cast<int>(nb - ub) : 32;
-      for (int i = 0; i < cnt; ++i) {
-        const long long c0 = __shfl_sync(0xffffffffu, col0, i);
-        const int lv = __shfl_sync(0xffffffffu, live, i);
-        if (lane == 0) {
-          const long long u = ub + i;
-          const int s = static_cast<int>(u % kRing);
-          if (u >= kRing) mbar_wait(empty + 8 * s, static_cast<unsigned>(u / kRing - 1) & 1u);
-          if (lv > 0) {
-            mbar_expect_tx(full + 8 * s, lv * row_bytes);
-            bulk_copy(smem_addr(ring + s * sbytes), rows + c0 * row_bytes, lv * row_bytes,
-                      full + 8 * s);
-          } else {
-            mbar_arrive(full + 8 * s);
-          }
+  if (warp == kW * kG) {
+    // The producer. Lane l issues step ub + l of a batch of kSteps (what the
+    // consumers release together) into a stage they have released: one
+    // lane issuing every step in turn took ~250 clocks a step, more than
+    // the consumers need for a 1.5 KB step of a narrow bank. It reads the
+    // step's tail from device memory a batch ahead, writes it behind the
+    // stage's rows, and its arrive publishes it with the rows.
+    struct Fetched {
+      long long col0;
+      int live;
+      float scale[kW], alive[kW];
+    };
+    auto fetch = [&](int u) {
+      Fetched f;
+      f.col0 = 0;
+      f.live = lane < kSteps && u < nb ? walk.block_rows(s0, q0, u, kW, f.col0) : 0;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) {
+        f.scale[i] = a.scales && i < f.live ? a.scales[f.col0 + i] : 1.f;
+        f.alive[i] = kAlive && i < f.live ? a.alive[f.col0 + i] : 1.f;
+      }
+      return f;
+    };
+    Fetched cur = fetch(lane);
+    for (int ub = 0; ub < nb; ub += kSteps) {
+      const int u = ub + lane;
+      const Fetched ahead = fetch(u + kSteps);
+      if (lane < kSteps && u < nb) {
+        const int s = u % kRing;
+        if (u >= kRing) mbar_wait(empty + 8 * s, static_cast<unsigned>(u / kRing - 1) & 1u);
+        float* const tail = reinterpret_cast<float*>(ring + s * sbytes + kW * row_bytes);
+#pragma unroll
+        for (int i = 0; i < kW; i += 4) {
+          *reinterpret_cast<float4*>(tail + i) =
+              make_float4(cur.scale[i], cur.scale[i + 1], cur.scale[i + 2], cur.scale[i + 3]);
+          *reinterpret_cast<float4*>(tail + kW + i) =
+              make_float4(cur.alive[i], cur.alive[i + 1], cur.alive[i + 2], cur.alive[i + 3]);
+        }
+        *reinterpret_cast<int2*>(tail + 2 * kW) = make_int2(static_cast<int>(cur.col0), cur.live);
+        if (cur.live > 0) {
+          mbar_expect_tx(full + 8 * s, cur.live * row_bytes);
+          bulk_copy(smem_addr(ring + s * sbytes), rows + cur.col0 * row_bytes,
+                    cur.live * row_bytes, full + 8 * s);
+        } else {
+          mbar_arrive(full + 8 * s);
         }
       }
+      cur = ahead;
     }
     return;
   }
 
-  // A consumer: warp w owns slot s0 + w and walks the block's steps.
-  const int slot = s0 + warp;
-  const long long n = walk.steps(slot, q0);
+  // A consumer: warp g * kW + w owns slot s0 + w for the queries of group g
+  // and walks the block's steps.
+  const int w = warp % kW;
+  const int qbase = warp / kW * (kNT * 8);
+  const int slot = s0 + w;
   float* const scores = reinterpret_cast<float*>(warps_smem + warp * kWarpSmem);
   StepTail* const tails = reinterpret_cast<StepTail*>(scores + kMmaSteps * kScoreStride);
-  const int r = lane >> 2;  // the A / C fragment's step (and step + 8)
+  const int r = lane >> 2;  // the A / C fragment's step of an m-tile (and step + 8)
   const int c = lane & 3;   // its column pair
-  // This lane's ldmatrix row for a pair of n-tiles at k = 0: lanes 0-7
-  // address n-tile j at k, 8-15 n-tile j at k + 8, 16-31 n-tile j + 1.
-  const unsigned b_lane =
-      smem_addr(tile) + ((lane & 7) + 8 * (lane >> 4)) * tstride + 16 * ((lane >> 3) & 1);
   SlotBank<kKeep2> bank[kPasses];
-  float acc[kNT][4];
-  auto step_tail = [&](long long u) {
-    long long col = u < n ? walk.col(slot, q0, u) : -1LL;
-    float scale = 1.f;
-    if (col >= 0) {
-      if (kAlive && !(a.alive[col] > 0.f)) col = -1;
-      if (a.scales && col >= 0) scale = a.scales[col];
-    }
-    return StepTail{static_cast<int>(col), scale * a.scale_mul};
-  };
-  StepTail next = lane < kMmaSteps ? step_tail(lane) : StepTail{-1, 0.f};
+  Acc acc[kMT][kNT][4];
 
-  for (long long u0 = 0; u0 < nb; u0 += kMmaSteps) {
-    const StepTail mine = next;
-    if (lane < kMmaSteps) {
-      tails[lane] = mine;
-      next = step_tail(u0 + kMmaSteps + lane);  // lands while this group is scored
+  for (int u0 = 0; u0 < nb; u0 += kSteps) {
+    // Lane l waits for step u0 + l and takes this slot's part of its tail.
+    StepTail mine{-1, 0.f};
+    const bool has_step = lane < kSteps && u0 + lane < nb;
+    if (has_step) {
+      const int u = u0 + lane;
+      mbar_wait(full + 8 * (u % kRing), static_cast<unsigned>(u / kRing) & 1u);
+      const float* const tail =
+          reinterpret_cast<const float*>(ring + u % kRing * sbytes + kW * row_bytes);
+      const int2 at = *reinterpret_cast<const int2*>(tail + 2 * kW);  // first column, live rows
+      if (w < at.y && (!kAlive || tail[kW + w] > 0.f))
+        mine = StepTail{at.x + w, (a.scales ? tail[w] : 1.f) * a.scale_mul};
     }
-    const bool any = __ballot_sync(0xffffffffu, lane < kMmaSteps && mine.col >= 0) != 0u;
-    if (lane < kMmaSteps && u0 + lane < nb) {
-      const long long u = u0 + lane;
-      mbar_wait(full + 8 * static_cast<int>(u % kRing), static_cast<unsigned>(u / kRing) & 1u);
-    }
+    if (lane < kSteps) tails[lane] = mine;
+    const bool any = __ballot_sync(0xffffffffu, mine.col >= 0) != 0u;
     __syncwarp();
     if (any) {
-      // Step r's and step r + 8's row of this warp, columns 2c, 2c + 1.
-      const char* const ar = ring + static_cast<int>((u0 + r) % kRing) * sbytes +
-                             warp * row_bytes + 2 * c * kEB;
-      const char* const ar8 = ring + static_cast<int>((u0 + r + 8) % kRing) * sbytes +
-                              warp * row_bytes + 2 * c * kEB;
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll 2
-      for (int k0 = 0; k0 < d; k0 += 16) {
-        const int e = k0 * kEB;
-        const uint32_t af[4] = {Rows::pair(ar + e), Rows::pair(ar8 + e),
-                                Rows::pair(ar + e + 8 * kEB), Rows::pair(ar8 + e + 8 * kEB)};
-        uint32_t bf[kNT / 2][4];
+      for (int t = 0; t < kMT; ++t)
 #pragma unroll
-        for (int j = 0; j < kNT / 2; ++j) ldmatrix_x4(bf[j], b_lane + j * 16 * tstride + 2 * k0);
+        for (int j = 0; j < kNT; ++j)
+          acc[t][j][0] = acc[t][j][1] = acc[t][j][2] = acc[t][j][3] = Acc(0);
+      // The rows of this warp's slot at steps r and r + 8 of each m-tile.
+      const char* ar[2 * kMT];
 #pragma unroll
-        for (int j = 0; j < kNT / 2; ++j) {
-          mma_bf16(acc[2 * j], af, bf[j][0], bf[j][1]);
-          mma_bf16(acc[2 * j + 1], af, bf[j][2], bf[j][3]);
-        }
-      }
+      for (int t = 0; t < 2 * kMT; ++t)
+        ar[t] = ring + (u0 + 8 * t + r) % kRing * sbytes + w * row_bytes;
+      op.template products<kNT, kMT>(acc, ar, smem_addr(tile), qbase, lane);
     }
-    __syncwarp();  // the group's rows are read: release its stages
-    if (lane < kMmaSteps && u0 + lane < nb)
-      mbar_arrive(empty + 8 * static_cast<int>((u0 + lane) % kRing));
+    __syncwarp();  // the group's rows and tails are read: release its stages
+    if (has_step) mbar_arrive(empty + 8 * ((u0 + lane) % kRing));
     if (!any) continue;
-    const StepTail t0 = tails[r], t8 = tails[r + 8];
+    // The m-tiles' scores go through the one 16-step score tile in turn,
+    // so the fold stays in step order.
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
+    for (int t = 0; t < kMT; ++t) {
+      const StepTail t0 = tails[kMmaSteps * t + r], t8 = tails[kMmaSteps * t + r + 8];
 #pragma unroll
-      for (int jj = 0; jj < 4 && 4 * p + jj < kNT; ++jj) {
-        const float* const cc = acc[4 * p + jj];
-        // One rounding of the dot, then the scale, as scan_kernel.
-        const float2 lo = t0.col >= 0 ? make_float2(cc[0] * t0.mul, cc[1] * t0.mul)
-                                      : make_float2(kNegInf, kNegInf);
-        const float2 hi = t8.col >= 0 ? make_float2(cc[2] * t8.mul, cc[3] * t8.mul)
-                                      : make_float2(kNegInf, kNegInf);
-        *reinterpret_cast<float2*>(scores + r * kScoreStride + 8 * jj + 2 * c) = lo;
-        *reinterpret_cast<float2*>(scores + (r + 8) * kScoreStride + 8 * jj + 2 * c) = hi;
+      for (int p = 0; p < kPasses; ++p) {
+#pragma unroll
+        for (int jj = 0; jj < 4 && 4 * p + jj < kNT; ++jj) {
+          const Acc* const cc = acc[t][4 * p + jj];
+          // One rounding of the dot (an integer dot's only one), then the
+          // scale, as scan_kernel.
+          const float2 lo = t0.col >= 0 ? make_float2(static_cast<float>(cc[0]) * t0.mul,
+                                                      static_cast<float>(cc[1]) * t0.mul)
+                                        : make_float2(kNegInf, kNegInf);
+          const float2 hi = t8.col >= 0 ? make_float2(static_cast<float>(cc[2]) * t8.mul,
+                                                      static_cast<float>(cc[3]) * t8.mul)
+                                        : make_float2(kNegInf, kNegInf);
+          *reinterpret_cast<float2*>(scores + r * kScoreStride + 8 * jj + 2 * c) = lo;
+          *reinterpret_cast<float2*>(scores + (r + 8) * kScoreStride + 8 * jj + 2 * c) = hi;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int st = 0; st < kMmaSteps; ++st)
+          bank[p].fold(scores[st * kScoreStride + lane], tails[kMmaSteps * t + st].col);
+        __syncwarp();
       }
-      __syncwarp();
-#pragma unroll
-      for (int st = 0; st < kMmaSteps; ++st)
-        bank[p].fold(scores[st * kScoreStride + lane], tails[st].col);
-      __syncwarp();
     }
   }
 #pragma unroll
   for (int p = 0; p < kPasses; ++p) {
-    const int qq = kFoldQ * p + lane;
-    if (qq < nq) bank[p].store(a.v, a.i, a.v2, a.i2, (long long)(q0 + qq) * a.n_slots + slot);
+    const int qq = qbase + kFoldQ * p + lane;
+    if (kFoldQ * p + lane < kNT * 8 && qq < nq)
+      bank[p].store(a.v, a.i, a.v2, a.i2, (long long)(q0 + qq) * a.n_slots + slot);
   }
 }
 
-template <class Rows, int kNT, class Walk, bool kKeep2, bool kAlive>
-cudaError_t launch_mma_scan(const MmaTileOp<Rows>& op, const Walk& walk, const ScanArgs& a,
+template <class Op, int kW, int kNT, int kG, int kMT, class Walk, bool kKeep2, bool kAlive>
+cudaError_t launch_mma_scan(const Op& op, const Walk& walk, const ScanArgs& a,
                             cudaStream_t stream) {
-  constexpr int kW = Rows::kWarps;
-  auto kernel = mma_scan_kernel<Rows, kNT, Walk, kKeep2, kAlive>;
-  const size_t smem = op.smem_bytes(kNT, kW, mma_ring<Rows, kNT>());
+  constexpr int kTileQ = kNT * 8 * kG;
+  auto kernel = mma_scan_kernel<Op, kW, kNT, kG, kMT, Walk, kKeep2, kAlive>;
+  const size_t smem = op.tile_bytes(kTileQ) +
+                      (size_t)mma_ring<Op, kW, kG, kMT>(kTileQ) * (kW * op.row_bytes() + Op::kTail + 16) +
+                      kW * kG * kWarpSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_slots / kW, (a.n_q + kMmaTileQ - 1) / kMmaTileQ);
-  kernel<<<grid, (kW + 1) * 32, smem, stream>>>(op, walk, a);
+  kernel<<<grid, (kW * kG + 1) * 32, smem, stream>>>(op, walk, a);
   return cudaGetLastError();
 }
 
-template <class Rows, int kNT, class Walk>
-cudaError_t launch_mma_flags(const MmaTileOp<Rows>& op, const Walk& walk, const ScanArgs& a,
-                             bool keep2, cudaStream_t stream) {
+template <class Op, int kW, int kNT, int kG, int kMT, class Walk>
+cudaError_t launch_mma_flags(const Op& op, const Walk& walk, const ScanArgs& a, bool keep2,
+                             cudaStream_t stream) {
   if (keep2)
-    return a.alive ? launch_mma_scan<Rows, kNT, Walk, true, true>(op, walk, a, stream)
-                   : launch_mma_scan<Rows, kNT, Walk, true, false>(op, walk, a, stream);
-  return a.alive ? launch_mma_scan<Rows, kNT, Walk, false, true>(op, walk, a, stream)
-                 : launch_mma_scan<Rows, kNT, Walk, false, false>(op, walk, a, stream);
+    return a.alive ? launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, true, true>(op, walk, a, stream)
+                   : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, true, false>(op, walk, a, stream);
+  return a.alive ? launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, true>(op, walk, a, stream)
+                 : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, false>(op, walk, a, stream);
 }
 
 // The non-exact float scan of a walk (bf16 inputs, f32 accumulate): one
@@ -799,11 +913,13 @@ cudaError_t launch_bf16_scan(const float* q, const void* db, int d, const Walk& 
     const FloatTileOp<Unit, true> op{reinterpret_cast<const float4*>(q), db, d / 4};
     return launch_scan_tile<FloatTileOp<Unit, true>, Walk, 1>(op, walk, a, keep2, stream);
   }
-  const MmaTileOp<Rows> op{q, db, d};
-  if (a.n_q <= 16) return launch_mma_flags<Rows, 2>(op, walk, a, keep2, stream);
-  if (a.n_q <= 32) return launch_mma_flags<Rows, 4>(op, walk, a, keep2, stream);
-  if (a.n_q <= 64) return launch_mma_flags<Rows, 8>(op, walk, a, keep2, stream);
-  return launch_mma_flags<Rows, 16>(op, walk, a, keep2, stream);
+  using Op = MmaTileOp<Rows>;
+  constexpr int kW = Rows::kWarps;
+  const Op op{q, db, d};
+  if (a.n_q <= 16) return launch_mma_flags<Op, kW, 2, 1, 1>(op, walk, a, keep2, stream);
+  if (a.n_q <= 32) return launch_mma_flags<Op, kW, 4, 1, 1>(op, walk, a, keep2, stream);
+  if (a.n_q <= 64) return launch_mma_flags<Op, kW, 8, 1, 1>(op, walk, a, keep2, stream);
+  return launch_mma_flags<Op, kW, 16, 1, 1>(op, walk, a, keep2, stream);
 }
 
 }  // namespace memex

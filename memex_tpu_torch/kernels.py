@@ -137,6 +137,12 @@ def library() -> ctypes.CDLL:
                 c.c_longlong, c.c_int, c.c_int,  # limit, deferred, keep2
                 c.c_void_p,  # stream
             ]
+            lib.memex_int4_query_operands.restype = c.c_int
+            lib.memex_int4_query_operands.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_void_p,  # q, qa, qb
+                c.c_int, c.c_int, c.c_int,  # n_q, d, deferred
+                c.c_void_p,  # stream
+            ]
             lib.memex_ivf_batch.restype = c.c_int
             lib.memex_ivf_batch.argtypes = [
                 c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,  # q, data, row_type, scales

@@ -490,6 +490,27 @@ def int4q_candidates_reference(db_p: torch.Tensor, scales8: torch.Tensor,
     return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
 
 
+def int4_query_operands_cuda(queries: torch.Tensor, deferred: bool):
+    """`_int4_query_operands` in one launch of the int4 scan's
+    query-operand kernel (csrc/fused_topk_int4.cu): the same two tensors,
+    bit for bit, from float32 queries on the card."""
+    from ..kernels import library
+
+    queries = queries.float().contiguous()
+    _need_cuda(queries)
+    Q, d = queries.shape
+    with torch.cuda.device(queries.device):
+        qa, qb = (torch.empty((Q, d // 2), device=queries.device,
+                              dtype=torch.float32 if deferred else torch.int8)
+                  for _ in range(2))
+        err = library().memex_int4_query_operands(
+            queries.data_ptr(), qa.data_ptr(), qb.data_ptr(), Q, d, int(deferred),
+            torch.cuda.current_stream(queries.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4 query-operand kernel launch failed: cudaError {err}")
+    return qa, qb
+
+
 def int4q_candidates_cuda(db_p: torch.Tensor, scales8: torch.Tensor, queries: torch.Tensor,
                           count=None, alive=None, *, banks: int = 8,
                           deferred: bool = False, keep2: bool = False):
@@ -497,8 +518,7 @@ def int4q_candidates_cuda(db_p: torch.Tensor, scales8: torch.Tensor, queries: to
     from ..kernels import library
 
     _check_int4(db_p, scales8, queries, alive, banks)
-    qa, qb = _int4_query_operands(queries, deferred)
-    _need_cuda(db_p, scales8, qa, qb, *([alive] if alive is not None else []))
+    _need_cuda(db_p, scales8, *([alive] if alive is not None else []))
     lib = library()
     n, d2 = db_p.shape
     d = 2 * d2
@@ -508,7 +528,9 @@ def int4q_candidates_cuda(db_p: torch.Tensor, scales8: torch.Tensor, queries: to
     S = banks * _LANES
     Q = queries.shape[0]
     with torch.cuda.device(db_p.device):
+        # Outputs first, so the two launches follow each other closely.
         vals, idx = _bank_outputs(db_p, Q, S, keep2)
+        qa, qb = int4_query_operands_cuda(queries, deferred)
         err = lib.memex_fused_topk_int4q(
             qa.data_ptr(), qb.data_ptr(), db_p.data_ptr(), scales8.data_ptr(), INT4_SCALE,
             alive.data_ptr() if alive is not None else None,
@@ -520,6 +542,8 @@ def int4q_candidates_cuda(db_p: torch.Tensor, scales8: torch.Tensor, queries: to
     if err != 0:
         raise RuntimeError(f"fused_topk_int4q kernel launch failed: cudaError {err}")
     _launched("fused_topk_int4q")
+    if not keep2:
+        return vals[0], idx[0]
     return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
 
 

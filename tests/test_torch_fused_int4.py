@@ -8,8 +8,8 @@ each package's own function and compare through a transpose.
 K4's shift mode is exact integer arithmetic, and its score one float32
 rounding of raw * (scale8 * 127/7) on both sides: the banks must be equal
 bit for bit. Deferred mode takes bf16 query operands, but every product
-and partial sum is an integer below 2^24 at these sizes, so its bank is
-held to bit equality too. The rerank re-scores bf16 x int8 dots in
+and partial sum is an integer below 2^24 (at these sizes and at D = 384),
+so its bank is held to bit equality too. The rerank re-scores bf16 x int8 dots in
 float32 in different orders: indices equal, values within SCORE_ATOL."""
 
 import functools
@@ -19,6 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
 
 from memex_tpu import native_lib
 from memex_tpu.ops import fused_topk as jft
@@ -124,6 +127,59 @@ def test_int4_rerank_matches_jax(deferred, keep2, banks, with_alive, q_n):
         alive=None if alive is None else torch.from_numpy(alive), rerank=64, banks=banks,
         deferred=deferred, keep2=keep2)
     assert torch.equal(rv, tv) and torch.equal(ri, ti)
+
+
+@pytest.mark.parametrize("q_n", [2, 31, 33, 64, 128])
+@pytest.mark.parametrize("deferred,keep2,banks", [(False, False, 8), (True, False, 8),
+                                                  (False, True, 16), (True, True, 16)])
+def test_int4_rerank_matches_jax_at_the_batches_its_tiles_split_on(deferred, keep2, banks, q_n):
+    """The card's kernel scores 16 queries a pair of n-tiles, 32 a fold
+    pass and a second group on further warps: the same batch sizes through
+    the plain version and memex_tpu, through the transpose. Ids equal,
+    values within SCORE_ATOL (the rerank's float32 sums)."""
+    rng, p_t, p, codes, scales = _corpus(20 + q_n)
+    q = _unit(rng, q_n)
+    alive = (rng.random(N) > 0.1).astype(np.float32)
+    count = N - 100
+    jv, ji = jft.fused_score_topk_int4_rerank(
+        jnp.asarray(p_t), jnp.asarray(scales), jnp.asarray(codes), jnp.asarray(q), K,
+        count=count, alive=jnp.asarray(alive), rerank=64, block_n=N, banks=banks,
+        deferred=deferred, keep2=keep2, interpret=True)
+    tv, ti = ft.fused_score_topk_int4_rerank(
+        torch.from_numpy(p), torch.from_numpy(scales), torch.from_numpy(codes),
+        torch.from_numpy(q), K, count=count, alive=torch.from_numpy(alive), rerank=64,
+        banks=banks, deferred=deferred, keep2=keep2)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=SCORE_ATOL)
+
+
+@settings(max_examples=50, deadline=None)
+@given(q8=hnp.arrays(np.int8, (4, 384), elements=st.integers(-127, 127)))
+def test_deferred_operands_are_exact_in_16_bit_floats(q8):
+    """What K4's bit equality in deferred mode rests on, at D = 384. The
+    operands of `_int4_query_operands` are integers that bf16 holds exactly
+    (the wrapper rounds them to it) and f16 too (at most 8 significant
+    bits, below 65,504), in1 is q_lo itself, and against the widest packed
+    row (|b| <= 119, |hi| <= 7) the sum of the products' magnitudes stays
+    below 2^24: every partial sum is an integer that float32 holds, in any
+    order. Shift mode's integer dot has the same bound."""
+    # Queries whose int8 quantization is q8 itself: a row's absmax is 127.
+    q = q8.astype(np.float32)
+    q[:, 0] = 127.0
+    q8 = q.astype(np.int8)
+    in1, in2 = ft._int4_query_operands(torch.from_numpy(q), deferred=True)
+    q_lo, q_hi = ft._int4_query_operands(torch.from_numpy(q), deferred=False)
+    np.testing.assert_array_equal(q_lo.numpy(), q8[:, :192])
+    np.testing.assert_array_equal(q_hi.numpy(), q8[:, 192:])
+    for op in (in1, in2):
+        assert torch.equal(op, op.round())
+        assert torch.equal(op.to(torch.bfloat16).float(), op)
+        assert torch.equal(op.to(torch.float16).float(), op)
+    assert torch.equal(in1, q_lo.float())
+    assert in2.abs().max() <= 127 + 16 * 127 + 8  # 2,159 rounds to 2,160
+    worst = 119 * in1.abs().sum(dim=1) + 7 * in2.abs().sum(dim=1)
+    assert worst.max() < 2 ** 24
+    assert (7 * torch.from_numpy(np.abs(q8.astype(np.int64))).sum(dim=1)).max() < 2 ** 24
 
 
 def test_int4_wrappers_reject_what_they_cannot_take():

@@ -13,6 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
 
 from memex_tpu import native_lib
 from memex_tpu.ops import fused_topk as jft
@@ -88,6 +91,39 @@ def test_plain_k2_matches_jax_bit_for_bit(keep2, with_alive, count, q_n):
     assert ti.max() < count
     if alive is not None:
         assert (alive[ti] > 0).all()
+
+
+@pytest.mark.parametrize("q_n", [2, 31, 33, 64, 128])
+@pytest.mark.parametrize("keep2", [False, True])
+def test_k2_matches_jax_at_the_batches_its_tiles_split_on(keep2, q_n):
+    """The card's kernel scores 16 queries a pair of n-tiles, 32 a fold
+    pass and further groups of 32 on further warps: the same batch sizes
+    through the plain version and memex_tpu. Ids equal; scores within 1e-5
+    relative (both sides round an exact integer dot once, then scale)."""
+    rng, codes, scales = _corpus(11 + q_n)
+    q = _unit(rng, q_n)
+    alive = (rng.random(N) > 0.2).astype(np.float32)
+    jv, ji, tv, ti = _run_int8q(codes, scales, q, KK, N - 37, alive, keep2)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=0)
+
+
+@settings(max_examples=50, deadline=None)
+@given(q8=hnp.arrays(np.int8, 384, elements=st.integers(-127, 127)),
+       rows=hnp.arrays(np.int8, (8, 384), elements=st.integers(-127, 127)))
+def test_k2_raw_dot_is_exact_below_2_pow_24(q8, rows):
+    """What K2's bit equality rests on, at the widest row the kernel takes:
+    |raw| <= 384 * 127^2 < 2^24, so the s32 dot converts to float32 with no
+    rounding, and the plain version's float32 matmul of the integer values
+    is that same integer, whatever the order of its sums."""
+    assert 384 * 127 * 127 < 2 ** 24
+    rows = np.concatenate([rows, 127 * np.sign(q8)[None, :]]).astype(np.int8)  # the worst row
+    want = rows.astype(np.int64) @ q8.astype(np.int64)
+    assert np.abs(want).max() < 2 ** 24
+    got = ft.scores_f32(torch.from_numpy(q8)[None, :].float(),
+                        torch.from_numpy(rows).T.float(), exact=True)[0]
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    np.testing.assert_array_equal(want.astype(np.float32).astype(np.int64), want)
 
 
 def test_k2_masked_slots_keep_the_sentinel():

@@ -17,7 +17,7 @@ pytestmark = pytest.mark.gpu
 N, D = 1 << 16, 384
 # K1 and K3: kernel and plain version sum 384 float32 products in
 # different orders: float32 ulps of a score <= 1. K2 and K4 are exact
-# integer dots and must match bit for bit.
+# integer dots and must match bit for bit (torch.equal).
 SCORE_TOL = 2e-5
 
 
@@ -227,6 +227,109 @@ def test_k1_tensor_core_body_matches_plain(cuda, corpus, dtype, keep2, q_n):
     pv, pi = ft.fused_score_topk_reference(db, q, 64, **kw)
     _check_near_ties(kv, ki, pv, pi, lambda qi, rows_: score_of(qi, rows_))
     assert (alive[ki.long()] > 0).all() and int(ki.max()) < N - 1234
+
+
+# -- K2's and K4's tensor-core body (more than one query) --
+
+
+def _rows_of(gen, corpus, n, d, device):
+    """n unit rows of width d, random or drawn from 2,048 distinct ones."""
+    m = n if corpus == "random" else 2048
+    x = torch.randn((m, d), generator=gen, device=device)
+    x = x / x.norm(dim=1, keepdim=True)
+    if corpus == "duplicates":
+        x = x[torch.randint(0, m, (n,), generator=gen, device=device)]
+    return x
+
+
+def _tied_queries(gen, corpus, rows, q_n):
+    q = _rows_of(gen, "random", q_n, rows.shape[1], rows.device)
+    if corpus == "duplicates":
+        q[: q_n // 2] = rows[: q_n // 2]  # queries that tie their duplicates exactly
+    return q
+
+
+@pytest.mark.parametrize("q_n", TC_Q)
+@pytest.mark.parametrize("keep2", [False, True])
+@pytest.mark.parametrize("d", [384, 48])
+@pytest.mark.parametrize("corpus", ["random", "duplicates"])
+def test_k2_tensor_core_body_is_bit_equal_to_plain(cuda, corpus, d, keep2, q_n):
+    """The s8 product is exact, so the bank is the plain version's bit for
+    bit, ties included. count = N - 1234 is no multiple of a block's 4
+    slots and leaves the last group of 16 steps ragged; d = 48 is a
+    multiple of 16 but not of the product's k = 32."""
+    gen = torch.Generator(device=cuda).manual_seed(q_n)
+    rows = _rows_of(gen, corpus, N, d, cuda)
+    codes, scales = ft.quantize_rows_int8(rows)
+    q8, _ = ft.quantize_rows_int8(_tied_queries(gen, corpus, rows, q_n))
+    alive = (torch.rand(N, generator=gen, device=cuda) > 0.05).float()
+    kw = dict(count=N - 1234, alive=alive, banks=4, keep2=keep2)
+    before = ft.LAUNCHES["fused_topk_int8q"]
+    bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw)
+    assert ft.LAUNCHES["fused_topk_int8q"] == before + 1
+    plain = ft.int8q_bank_reference(codes, scales, q8, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(bank[0] + bank[1], plain[0] + plain[1], strict=True):
+        assert torch.equal(a, b)
+    no_mask = ft.fused_score_bank_int8q_cuda(codes, scales, q8, banks=8, keep2=keep2)
+    plain = ft.int8q_bank_reference(codes, scales, q8, banks=8, keep2=keep2)
+    for a, b in zip(no_mask[0] + no_mask[1], plain[0] + plain[1], strict=True):
+        assert torch.equal(a, b)
+
+
+def _pack_int4(rows):
+    """Packed int4 rows [N, d/2] (byte j = 16 * code[j + d/2] + code[j])."""
+    d = rows.shape[1]
+    s4 = torch.clamp(rows.abs().amax(dim=1), min=1e-12) / 7.0
+    c4 = torch.clamp(torch.round(rows / s4[:, None]), -7, 7).to(torch.int32)
+    return (c4[:, : d // 2] + 16 * c4[:, d // 2 :]).to(torch.int8).contiguous()
+
+
+@pytest.mark.parametrize("q_n", TC_Q)
+@pytest.mark.parametrize("keep2,banks", [(False, 8), (True, 16)])
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("d", [384, 96])
+@pytest.mark.parametrize("corpus", ["random", "duplicates"])
+def test_k4_tensor_core_body_is_bit_equal_to_plain(cuda, corpus, d, deferred, keep2, banks, q_n):
+    """Both modes are exact integer dots below 2^24: shift on the s8
+    product, deferred on the f16 one. d = 96 packs to 48 bytes a row, a
+    multiple of 16 but not of the s8 product's k = 32."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + q_n)
+    rows = _rows_of(gen, corpus, N, d, cuda)
+    packed = _pack_int4(rows)
+    _, scales = ft.quantize_rows_int8(rows)
+    q = _tied_queries(gen, corpus, rows, q_n)
+    alive = (torch.rand(N, generator=gen, device=cuda) > 0.05).float()
+    kw = dict(count=N - 1234, alive=alive, banks=banks, deferred=deferred, keep2=keep2)
+    before = ft.LAUNCHES["fused_topk_int4q"]
+    bank = ft.int4q_candidates_cuda(packed, scales, q, **kw)
+    assert ft.LAUNCHES["fused_topk_int4q"] == before + 1
+    plain = ft.int4q_candidates_reference(packed, scales, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bank[0], plain[0]) and torch.equal(bank[1], plain[1])
+    live = bank[0] > -1e29
+    assert (alive[bank[1].long()] > 0)[live].all() and int(bank[1].max()) < N - 1234
+
+
+@pytest.mark.parametrize("q_n", [1, 33])
+@pytest.mark.parametrize("d", [384, 96])
+@pytest.mark.parametrize("deferred", [False, True])
+def test_k4_query_operand_kernel_is_bit_equal_to_plain(cuda, deferred, d, q_n):
+    """The one-launch query quantization of K4's wrapper gives the plain
+    version's operands bit for bit: same float32 scale, same round-half-even
+    codes, same bf16 rounding of in2, also for a zero query, a huge one, and
+    values on rounding ties (multiples of half a quantization step)."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * q_n + d)
+    q = torch.randn((q_n + 3, d), generator=gen, device=cuda)
+    q[-3] = 0.0
+    q[-2] *= 1e30
+    q[-1] = torch.randint(-254, 255, (d,), generator=gen, device=cuda).float() * 0.5
+    q[-1, 0] = 127.0
+    got = ft.int4_query_operands_cuda(q, deferred)
+    want = ft._int4_query_operands(q, deferred)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # -- the IVF scans: K5 (csrc/ivf_batch.cu), K6 (ivf_batch4.cu), K7 (ivf_scan.cu) --
