@@ -16,7 +16,8 @@ result line) on any failed phase:
      1024, keep2 off/on) and K4 in shift and in deferred mode (int4 rows,
      S = 1024 and 2048, keep2 off/on), bit-equal to their plain versions,
      also at Q in {2, 31, 33, 64}, around the widths of their tensor-core
-     tiles; K3 (int8 rows, bf16 queries, S = 1024) within tolerance;
+     tiles; K3 (int8 rows, bf16 queries, S = 1024) within tolerance, bank
+     and top list, at the same batch sizes;
   2. the HTTP server (`python -m memex_tpu_torch serve`) at full
      all-MiniLM-L12-v2 width with seeded random weights, on a float32
      store and on an int8+refine store (~200 documents each), then on a
@@ -31,13 +32,15 @@ result line) on any failed phase:
      timed at Q in {1, 32, 128} on the float32, int8 and int4 stores;
   4. the IVF tier at memex_tpu's 10M configuration (bench.py: 10,485,760
      clustered rows, int8, n_clusters=4096, nprobe=64, bucket_factor=1.2,
-     built on the device): K5 (keep2 off/on), K6 (its int4 mirror) and K7
-     against their plain versions on the index's routed unions at Q in
-     {1, 32, 128}; recall@10 of IVFIndex.search against a float32 oracle
+     built on the device): K5 (keep2 off/on) and K7 against their plain
+     versions on the index's routed unions at Q in {1, 32, 128}, K6 (its
+     int4 mirror, S = 512 and 1024, keep2 off/on) at Q in {1, 2, 31, 32, 33,
+     64, 128}; recall@10 of IVFIndex.search against a float32 oracle
      for int8 (K5) and scan_int4 (K6); the store's search_batch timed on
      text queries; then 1,048,576-row host-built indexes (float32,
      float32 with scan_precision="highest", int8+refine) and a 4-cluster
-     index whose buckets only K7 can scan, each with a recall check; on
+     index whose buckets only K7 can scan (built twice from one seed: its
+     k-means must give bit-equal centroids), each with a recall check; on
      the float32 ones K5 in the mode each search runs (bf16-rounded rows,
      as the HTTP run's float32 store; exact with keep2), and on the
      4-cluster one K7 on its own probes, against their plain versions.
@@ -73,8 +76,8 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_Q = 32  # the batch each kernel's line reports
 TIMED_Q = (1, 32, 128)
-# K2 and K4 are also checked around their tile widths: 16 queries a pair
-# of n-tiles, 32 a fold pass, more on further warps.
+# K2, K3, K4 and K6 are also checked around their tile widths: 16 queries a
+# pair of n-tiles, 32 a fold pass, more on further warps.
 TILE_Q = (1, 2, 31, 32, 33, 64, 128)
 N_ROWS = 1 << 20
 DIM = 384
@@ -183,12 +186,10 @@ def gbps(n_bytes: int, ms: float) -> str:
     return f"{n_bytes / (ms * 1e-3) / 1e9:.1f}"
 
 
-def columns(n_bytes: float, n_ops: float, kind: str, library: float | None) -> dict:
-    """The kernels line's bound and library columns."""
-    from memex_tpu_torch.scan_bench import bound
-
-    b_ms, b_by = bound(n_bytes, n_ops, kind)
-    return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+def columns(bound: tuple[float, str], library: float | None) -> dict:
+    """The kernels line's bound (from memex_tpu_torch/scan_bench.py's bound
+    functions, which its own records use) and library columns."""
+    return {"bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
 
 
 def phase1(label: str, seed: int) -> dict:
@@ -196,7 +197,8 @@ def phase1(label: str, seed: int) -> dict:
 
     from memex_tpu_torch import kernels
     from memex_tpu_torch.ops import fused_topk as ft
-    from memex_tpu_torch.scan_bench import int_mm_ms, k1_bound, k2_bound, k4_bound, pack_int4
+    from memex_tpu_torch.scan_bench import (int_mm_ms, k1_bound, k2_bound, k3_bound, k4_bound,
+                                            pack_int4)
 
     t0 = time.perf_counter()
     path = kernels.build()
@@ -236,9 +238,9 @@ def phase1(label: str, seed: int) -> dict:
                     rows16, q16 = db[:count].bfloat16(), q.bfloat16()
                     lib = cuda_ms(lambda: torch.matmul(q16, rows16.T))
                     del rows16
-                    b_ms, b_by = k1_bound(Q, live, count, DIM * 4, 1024)
-                    main_cols = {"bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-                    print(f"[{label}] phase1 K1 rows=f32 Q={Q} bound_ms={b_ms:.4f} ({b_by}) "
+                    main_cols = columns(k1_bound(Q, live, count, DIM * 4, 1024), lib)
+                    print(f"[{label}] phase1 K1 rows=f32 Q={Q} bound_ms="
+                          f"{main_cols['bound_ms']:.4f} ({main_cols['bound_by']}) "
                           f"library_ms={lib:.4f} (torch.matmul, bf16 operands)", flush=True)
         del db
     out["fused_topk"] = {"max_abs_err": worst, "ms": main_ms, "plain_ms": main_plain,
@@ -284,33 +286,45 @@ def phase1(label: str, seed: int) -> dict:
                 res[(keep2, Q)] = (ms, p_ms)
                 if not keep2 and Q == MAIN_Q:
                     # All N rows (N % 8 == 0, as _int_mm asks); K2 scans `count`.
-                    b_ms, b_by = k2_bound(Q, live, count, 512)
-                    k2_cols = {"bound_ms": b_ms, "bound_by": b_by,
-                               "library_ms": int_mm_ms(q8, codes.t(), "K2")}
+                    k2_cols = columns(k2_bound(Q, live, count, 512),
+                                      int_mm_ms(q8, codes.t(), "K2"))
     out["fused_topk_int8q"] = {"max_abs_err": 0.0, "ms": res[(False, MAIN_Q)][0],
                                "plain_ms": res[(False, MAIN_Q)][1], **k2_cols}
 
-    # K3: K1's tolerance.
+    # K3: K1's tolerance (the tensor cores sum the 384 products in another
+    # order than the plain version's matmul), bank and top list, at the
+    # batch sizes around the body's tile widths.
     worst, res = 0.0, {}
-    for Q in (1, 32, 128):
+    for Q in TILE_Q:
         q = unit_rows(Q, DIM, gen, dev)
         kw = dict(count=count, alive=alive, banks=8)
+
+        def score3(qi, rows):
+            return (q[qi].bfloat16().float() * codes[rows].float()).sum(1) * scales[rows]
+
+        bank = ft.fused_score_bank_int8_cuda(codes, scales, q, **kw)
+        plain = ft.int8_bank_reference(codes, scales, q, **kw)
+        torch.cuda.synchronize()
+        err, slot_diff = compare_bank(bank, plain, score3)
         kv, ki = ft.fused_score_topk_int8(codes, scales, q, 128, **kw)
         pv, pi = ft.fused_score_topk_int8_reference(codes, scales, q, 128, **kw)
-        err, n_diff = compare_topk(kv, ki, pv, pi, lambda qi, rows: (
-            q[qi].bfloat16().float() * codes[rows].float()).sum(1) * scales[rows])
-        worst = max(worst, err)
+        err2, n_diff = compare_topk(kv, ki, pv, pi, score3)
+        worst = max(worst, err, err2)
+        what = (f"S=1024 Q={Q} max_abs_err={max(err, err2):.3e} slot_idx_diff={slot_diff} "
+                f"idx_diff={n_diff}")
+        if Q not in TIMED_Q:
+            print(f"[{label}] phase1 K3 int8 {what}", flush=True)
+            continue
         ms = cuda_ms(lambda: ft.fused_score_topk_int8(codes, scales, q, 128, **kw))
         bank_ms = cuda_ms(lambda: ft.fused_score_bank_int8_cuda(codes, scales, q, **kw))
         p_ms = plain_ms(lambda: ft.fused_score_topk_int8_reference(codes, scales, q, 128, **kw))
-        print(f"[{label}] phase1 K3 int8 S=1024 Q={Q} max_abs_err={err:.3e} idx_diff={n_diff} "
+        print(f"[{label}] phase1 K3 int8 {what} "
               f"kernel_ms={ms:.4f} (bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} "
               f"row_read_GBps={gbps(row8, bank_ms)}", flush=True)
         res[Q] = (ms, p_ms)
         if Q == MAIN_Q:
             codes16, q16 = codes[:count].bfloat16(), q.bfloat16()
-            k3_cols = columns(live * (DIM + 4) + count * 4 + Q * DIM * 4 + Q * 1024 * 8,
-                              2.0 * Q * live * DIM, "bf16",
+            k3_cols = columns(k3_bound(Q, live, count, 1024),
                               cuda_ms(lambda: torch.matmul(q16, codes16.T)))
             del codes16
     out["fused_topk_int8"] = {"max_abs_err": worst, "ms": res[MAIN_Q][0],
@@ -360,9 +374,8 @@ def phase1(label: str, seed: int) -> dict:
                         # The mode the main path runs at Q <= 64; _int_mm
                         # on the int4 codes is the library's product.
                         q8, _ = ft.quantize_rows_int8(q)
-                        b_ms, b_by = k4_bound(Q, live, count, 1024, deferred)
-                        k4_cols = {"bound_ms": b_ms, "bound_by": b_by,
-                                   "library_ms": int_mm_ms(q8, c4.t(), "K4")}
+                        k4_cols = columns(k4_bound(Q, live, count, 1024, deferred),
+                                          int_mm_ms(q8, c4.t(), "K4"))
     main = res[(8, True, False, MAIN_Q)]
     out["fused_topk_int4q"] = {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1],
                                **k4_cols}
@@ -750,7 +763,7 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
     from memex_tpu_torch.ops import ivf_batch as ib
     from memex_tpu_torch.ops import ivf_batch4 as ib4
     from memex_tpu_torch.ops import ivf_scan as isc
-    from memex_tpu_torch.scan_bench import k5_bound
+    from memex_tpu_torch.scan_bench import k5_bound, k6_bound, k7_bound
     from memex_tpu_torch.store.ivf_store import TpuIVFStore
 
     dev = torch.device("cuda")
@@ -783,7 +796,6 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
           f"M={M} spill_rows={index.spill.count} device_gb={index_gb(index):.3f}", flush=True)
 
     flat, fsc = index.data.view(-1, DIM), index.rscales.view(-1)
-    hi4 = None
     stats, res, cols = {}, {}, {}
     for Q in (1, 32, 128):
         q = queries[:Q].contiguous()
@@ -817,41 +829,9 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
             res[("ivf_batch", keep2, Q)] = (err, ms, p_ms)
             if not keep2 and Q == MAIN_Q:
                 rows16, qb = flat[union].bfloat16(), q.bfloat16()
-                b_ms, b_by = k5_bound(Q, n_live, n_ch, DIM + 4, 1024, C)
-                cols["ivf_batch"] = {"bound_ms": b_ms, "bound_by": b_by,
-                                     "library_ms": cuda_ms(lambda: torch.matmul(qb, rows16.T))}
+                cols["ivf_batch"] = columns(k5_bound(Q, n_live, n_ch, DIM + 4, 1024, C),
+                                            cuda_ms(lambda: torch.matmul(qb, rows16.T)))
                 del rows16
-
-        if hi4 is None:
-            hi4 = torch.clamp((flat.to(torch.int32) + 8) >> 4, -7, 7).to(torch.int8)
-        rs4 = rsc4.view(-1)
-
-        def score4(qi, idx):
-            return (q16[qi] * hi4[idx].float()).sum(1) * rs4[idx]
-
-        args4 = (data4, rsc4, index.sizes, walk, n_chunks, q)
-        bank = ib4.ivf_batch4_bank_cuda(*args4, banks=8)
-        plain = ib4.ivf_batch4_bank_reference(*args4, banks=8)
-        torch.cuda.synchronize()
-        err, n_diff = compare_bank(bank, plain, score4)
-        ms = cuda_ms(lambda: ib4.ivf_batch_topk4(data4, rsc4, index.sizes, clist, nact, q,
-                                                  1024, banks=8))
-        bank_ms = cuda_ms(lambda: ib4.ivf_batch4_bank_cuda(*args4, banks=8))
-        p_ms = plain_ms(lambda: ft._bank_topk(*ib4.ivf_batch4_bank_reference(*args4, banks=8),
-                                              1024))
-        n_bytes = n_ch * 1024 * (DIM // 2 + 4)
-        print(f"[{label}] phase4 K6 int4 S=1024 Q={Q} chunks={n_ch} bytes={n_bytes} "
-              f"max_abs_err={err:.3e} slot_idx_diff={n_diff} kernel_ms={ms:.4f} (bank only "
-              f"{bank_ms:.4f}) plain_ms={p_ms:.4f} row_read_GBps={gbps(n_bytes, bank_ms)}",
-              flush=True)
-        res[("ivf_batch4", False, Q)] = (err, ms, p_ms)
-        if Q == MAIN_Q:
-            # A packed row pair is D bytes with a scale each: D / 2 + 4 a row.
-            rows16, qb = hi4[union].bfloat16(), q.bfloat16()
-            cols["ivf_batch4"] = columns(
-                n_live * (DIM // 2 + 4) + n_ch * 4 + C * 4 + Q * DIM * 4 + Q * 1024 * 8,
-                2.0 * Q * n_live * DIM, "bf16", cuda_ms(lambda: torch.matmul(qb, rows16.T)))
-            del rows16
 
         probes = _route(index.centroids, q, index.nprobe).to(torch.int32)
         argsp = (index.data, index.rscales, index.sizes, probes, q)
@@ -877,10 +857,63 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
             buckets = index.data[probes.long()].reshape(Q, -1, DIM).bfloat16()
             qb = q.bfloat16()[:, None, :]
             cols["ivf_probe"] = columns(
-                rows_read * (DIM + 4) + probes.numel() * 4 + C * 4 + Q * DIM * 4 + Q * 256 * 8,
-                2.0 * live * DIM, "bf16",
+                k7_bound(Q, rows_read, live, probes.numel(), DIM + 4, 256, C),
                 cuda_ms(lambda: torch.bmm(qb, buckets.transpose(1, 2))))
             del buckets
+
+    # K6 on the int4 mirror, at both chunk widths the index can run (S =
+    # 1024, the 10M index's own mirror, and 512), keep2 off and on, at the
+    # batch sizes around the body's tile widths; timed at S = 1024.
+    hi4 = torch.clamp((flat.to(torch.int32) + 8) >> 4, -7, 7).to(torch.int8)
+    rs4 = rsc4.view(-1)
+    for banks in (8, 4):
+        S = banks * 128
+        mirror = data4 if banks == 8 else ib4.pack_int4_buckets(index.data, index.rscales,
+                                                                 banks=banks)[0]
+        for Q in TILE_Q:
+            q = queries[:Q].contiguous()
+            q16 = q.bfloat16().float()
+            clist, nact = ib.route_union(index.centroids, q, index.nprobe)
+            walk, n_chunks = ib._chunk_walk(index.sizes, clist, nact, M, S)
+            n_ch = int(n_chunks[0])
+            args4 = (mirror, rsc4, index.sizes, walk, n_chunks, q)
+
+            def score4(qi, idx):
+                return (q16[qi] * hi4[idx].float()).sum(1) * rs4[idx]
+
+            for keep2 in (False, True):
+                bank = ib4.ivf_batch4_bank_cuda(*args4, banks=banks, keep2=keep2)
+                plain = ib4.ivf_batch4_bank_reference(*args4, banks=banks, keep2=keep2)
+                torch.cuda.synchronize()
+                err, n_diff = compare_bank(bank, plain, score4)
+                res[("ivf_batch4", banks, keep2, Q)] = (err, None, None)
+                what = (f"S={S} keep2={keep2} Q={Q} chunks={n_ch} max_abs_err={err:.3e} "
+                        f"slot_idx_diff={n_diff}")
+                if banks != 8 or keep2 or Q not in TIMED_Q:
+                    print(f"[{label}] phase4 K6 int4 {what}", flush=True)
+                    continue
+                ms = cuda_ms(lambda: ib4.ivf_batch_topk4(mirror, rsc4, index.sizes, clist, nact,
+                                                          q, 1024, banks=8))
+                bank_ms = cuda_ms(lambda: ib4.ivf_batch4_bank_cuda(*args4, banks=8))
+                p_ms = plain_ms(lambda: ft._bank_topk(
+                    *ib4.ivf_batch4_bank_reference(*args4, banks=8), 1024))
+                n_bytes = n_ch * 1024 * (DIM // 2 + 4)
+                print(f"[{label}] phase4 K6 int4 {what} bytes={n_bytes} kernel_ms={ms:.4f} "
+                      f"(bank only {bank_ms:.4f}) plain_ms={p_ms:.4f} "
+                      f"row_read_GBps={gbps(n_bytes, bank_ms)}", flush=True)
+                res[("ivf_batch4", False, Q)] = (err, ms, p_ms)
+                if Q == MAIN_Q:
+                    col, ok = ib._union_columns(walk, n_chunks, index.sizes, M, 1024)
+                    union = col[ok]
+                    # A packed row is live with its first row: the first
+                    # half of each chunk's columns.
+                    live_packed = int(ok.view(n_ch, 1024)[:, :512].sum())
+                    rows16, qb = hi4[union].bfloat16(), q.bfloat16()
+                    cols["ivf_batch4"] = columns(
+                        k6_bound(Q, live_packed, int(union.numel()), n_ch, 1024, C),
+                        cuda_ms(lambda: torch.matmul(qb, rows16.T)))
+                    del rows16
+        del mirror
     del hi4
     for name in ("ivf_batch", "ivf_batch4", "ivf_probe"):
         mine = [v for key, v in res.items() if key[0] == name]
@@ -937,11 +970,21 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
     ids = list(range(N_ROWS))
     for name, opts, kernel, bar, kw, n_q in (
             *((n, o, k, b, dict(n_clusters=IVF_1M_CLUSTERS), 128) for n, o, k, b in IVF_1M),
-            ("int8-4-clusters", {"dtype": "int8"}, "ivf_probe", 0.90, dict(n_clusters=4), 32)):
+            ("int8-4-clusters", {"dtype": "int8"}, "ivf_probe", 0.93, dict(n_clusters=4), 32)):
         t0 = time.perf_counter()
         index = IVFIndex(DIM, nprobe=64, bucket_factor=1.2, device=dev, **kw, **opts)
         index.build(base_np, ids)
         torch.cuda.synchronize()
+        if kernel == "ivf_probe":
+            # k-means is a fixed function of its seed: a second build gives
+            # the same centroids bit for bit, so this index has one recall.
+            again = IVFIndex(DIM, nprobe=64, bucket_factor=1.2, device=dev, **kw, **opts)
+            again.build(base_np, ids)
+            same = torch.equal(index.centroids, again.centroids)
+            print(f"[{label}] phase4 1M {name} two builds from one seed: centroids "
+                  f"bit_equal={same}", flush=True)
+            check(same, f"1M IVF {name}: two k-means fits from one seed differ")
+            del again
         M = index.data.shape[1]
         print(f"[{label}] phase4 1M {name} host build seconds={time.perf_counter() - t0:.3f} "
               f"C={index.C} M={M} chunks_of_1024={M // 1024} spill_rows={index.spill.count} "

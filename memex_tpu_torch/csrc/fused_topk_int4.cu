@@ -67,6 +67,7 @@ constexpr int kSlots = 8;  // a block's slots on the tensor-core body
 // multiple of 16 ends on the parts' zero bytes.
 struct ShiftMmaOp {
   using Acc = int;
+  static constexpr int kFolds = 1;
   static constexpr int kTail = 80;
   static constexpr int kMaxRowBytes = kMaxDim / 2;
   __host__ __device__ static constexpr int max_tile_bytes(int tq) {
@@ -165,6 +166,7 @@ __device__ __forceinline__ void bytes_to_f16x2(uint32_t w, uint32_t bias, uint32
 // those pairs.
 struct DeferredMmaOp {
   using Acc = float;
+  static constexpr int kFolds = 1;
   static constexpr int kTail = 80;
   static constexpr int kMaxRowBytes = kMaxDim / 2;
   __host__ __device__ static constexpr int max_tile_bytes(int tq) {

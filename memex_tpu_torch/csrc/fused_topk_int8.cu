@@ -6,7 +6,7 @@
 // dot in int32, one rounding to float32, times the row scale. The wrapper
 // folds the query's own scale onto the k winners afterwards.
 // K3 replaces memex_tpu/ops/fused_topk.py::_fused_kernel_int8: float32
-// queries rounded to bf16 against int8 rows (exact as floats), FP32 FMA
+// queries rounded to bf16 against int8 rows (exact as bf16), f32
 // accumulation, times the row scale; single-winner fold only.
 // Both mask columns at or past `count` and dead rows, and fold column c
 // into slot c mod S as _fold_chunks does (slot_bank.cuh).
@@ -24,10 +24,13 @@
 // an SM) and, past 64 queries, two warps a slot, each on its own queries.
 // The dot is exact (|raw| <= 384 * 127 * 127 < 2^24), so the one rounding is
 // the final int-to-float, and the bank is bit-equal to the plain version's.
-// K3 runs the SIMT walk (slot_bank.cuh::scan_kernel): each warp streams its
-// slot's rows through a cp.async ring in shared memory, 8 rows in flight;
-// lane l reads words l, l + 32, l + 64 of the row, the query tile as float4,
-// and issues four FMAs per word, reduced in float32.
+// K3 runs the same body with K5's int8 product (slot_bank.cuh's
+// MmaTileOp<Int8Rows>) on the flat walk, at every batch size: the codes
+// become bf16 pairs by an exponent trick (no conversion pipe), the queries a
+// bf16 tile of up to 128, mma.sync m16n8k16 with f32 accumulate; 8 slots a
+// block (128 blocks at S = 1,024), one warp a slot.
+// The sum order is the tensor core's, so K3 agrees with its plain version
+// within float32 rounding of a 384-term sum, not bit for bit.
 
 #include "slot_bank.cuh"
 
@@ -41,6 +44,7 @@ constexpr int kMaxDim = 384;  // the widest row both kernels take
 // multiplied by zero.
 struct Int8qMmaOp {
   using Acc = int;
+  static constexpr int kFolds = 1;
   static constexpr int kSlots = 4;  // a block's slots: 128 blocks at S = 512
   static constexpr int kTail = 48;
   static constexpr int kMaxRowBytes = kMaxDim;
@@ -95,15 +99,26 @@ struct Int8qMmaOp {
   }
 };
 
-// K3: float32 queries rounded to bf16 at staging, float4 tile, FP32 FMA.
-using Int8Op = memex::FloatTileOp<memex::Int8x4, true>;
-static_assert(Int8Op::kMaxDim == kMaxDim, "K2 and K3 take the same dims");
-static_assert(Int8qMmaOp::kSlots == memex::kScanWarps, "and the same bank widths");
+// K3: float32 queries rounded to bf16 at staging, int8 codes as bf16 pairs.
+using Int8Op = memex::MmaTileOp<memex::Int8Rows>;
+static_assert(Int8Op::kMaxRowBytes == kMaxDim, "K2 and K3 take the same dims");
 
-// Rows stream in 16-byte copies: d must be a multiple of 16.
-bool bad_shape(int n_q, int d, int n_slots) {
-  return n_q <= 0 || d <= 0 || d % 16 || d > kMaxDim || n_slots <= 0 ||
-         n_slots % memex::kScanWarps;
+// Rows stream in 16-byte copies: d must be a multiple of 16; a block owns
+// `block_slots` slots of the bank.
+bool bad_shape(int n_q, int d, int n_slots, int block_slots) {
+  return n_q <= 0 || d <= 0 || d % 16 || d > kMaxDim || n_slots <= 0 || n_slots % block_slots;
+}
+
+// K3 has no keep2: only the single-winner fold is built. One warp a slot
+// holds the whole batch in kNT n-tiles, in 16-step groups.
+template <int kNT>
+cudaError_t launch_k3(const Int8Op& op, const memex::FlatWalk& walk, const memex::ScanArgs& a,
+                      cudaStream_t s) {
+  constexpr int kW = memex::Int8Rows::kWarps;
+  return a.alive ? memex::launch_mma_scan<Int8Op, kW, kNT, 1, 1, memex::FlatWalk, false, true>(
+                       op, walk, a, s)
+                 : memex::launch_mma_scan<Int8Op, kW, kNT, 1, 1, memex::FlatWalk, false, false>(
+                       op, walk, a, s);
 }
 
 }  // namespace
@@ -121,7 +136,7 @@ int memex_fused_topk_int8q(const void* q8, const void* db, const float* scales,
                            const float* alive, float* out_v, int* out_i, float* out_v2,
                            int* out_i2, int n_q, int d, int n_slots, long long limit,
                            int keep2, void* stream) {
-  if (bad_shape(n_q, d, n_slots)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n_q, d, n_slots, Int8qMmaOp::kSlots)) return (int)cudaErrorInvalidValue;
   const memex::ScanArgs a{scales, 1.f, alive, out_v, out_i, out_v2, out_i2, n_q, n_slots};
   const memex::FlatWalk walk{limit, n_slots};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -141,15 +156,28 @@ int memex_fused_topk_int8q(const void* q8, const void* db, const float* scales,
 }
 
 // K3. q [n_q, d] f32 (rounded to bf16 in the kernel); the rest as K2,
-// without keep2.
+// without keep2; n_slots a multiple of 8.
 int memex_fused_topk_int8(const float* q, const void* db, const float* scales,
                           const float* alive, float* out_v, int* out_i, int n_q, int d,
                           int n_slots, long long limit, void* stream) {
-  if (bad_shape(n_q, d, n_slots)) return (int)cudaErrorInvalidValue;
-  const Int8Op op{reinterpret_cast<const float4*>(q), db, d / 4};
+  constexpr int kW = memex::Int8Rows::kWarps;
+  if (bad_shape(n_q, d, n_slots, kW)) return (int)cudaErrorInvalidValue;
+  const Int8Op op{q, db, d};
   const memex::ScanArgs a{scales, 1.f, alive, out_v, out_i, nullptr, nullptr, n_q, n_slots};
-  return (int)memex::launch_scan_flags(op, memex::FlatWalk{limit, n_slots}, a, false,
-                                       static_cast<cudaStream_t>(stream));
+  const memex::FlatWalk walk{limit, n_slots};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The fewest n-tiles that hold the batch, K5's shapes; a lone query runs
+  // the 16-query tile too. Measured on an NVIDIA H100 80GB HBM3 at 700 W,
+  // 1M x 384, S = 1,024: a lone query
+  // 0.22-0.27 ms here against 0.51-0.57 on the SIMT one-query walk; groups
+  // of 32 steps changed nothing up to 64 queries (0.27 and 0.33-0.35 ms
+  // either way); at 128 queries one warp of 128 (0.49-0.50) beat two warps
+  // of 64 (0.55-0.59), the reverse of K2, whose s8 products need no
+  // conversion of the rows.
+  if (n_q <= 16) return (int)launch_k3<2>(op, walk, a, s);
+  if (n_q <= 32) return (int)launch_k3<4>(op, walk, a, s);
+  if (n_q <= 64) return (int)launch_k3<8>(op, walk, a, s);
+  return (int)launch_k3<16>(op, walk, a, s);
 }
 
 }  // extern "C"

@@ -55,14 +55,13 @@ struct ChunkWalk {
   }
   // Step t of the w slots from s0 on: rows (walk[t] & 255) * S + s0 ... of
   // cluster walk[t] >> 8, contiguous; the live ones are a prefix.
-  __device__ __forceinline__ int block_rows(int s0, int, long long t, int w,
-                                            long long& col0) const {
+  __device__ __forceinline__ memex::BlockStep block_step(int s0, int, long long t, int w) const {
     const int wt = walk[t];
     const int cid = wt >> 8;
     const int base = (wt & 255) * s + s0;
-    col0 = (long long)cid * m + base;
+    const long long col0 = (long long)cid * m + base;
     const int left = sizes[cid] - base;
-    return left <= 0 ? 0 : (left < w ? left : w);
+    return {col0, static_cast<int>(col0), left <= 0 ? 0 : (left < w ? left : w), 0};
   }
 };
 

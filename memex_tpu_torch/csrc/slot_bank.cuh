@@ -10,7 +10,7 @@
 // (strict '>': the earlier column wins) without any merge across blocks.
 // Two bodies score the rows:
 //   - scan_kernel (SIMT, FP32 FMA; tiles of 32 queries, or one alone; the
-//     exact modes, K3, K6, K7, and K1's and K5's lone query):
+//     exact modes, K7, and K1's and K5's lone query):
 //     lane l scores its slice of the row against every query of the tile;
 //     the transpose-reduce then leaves lane l holding the whole score of
 //     query l, which lane l folds into the (query l, slot) pair it owns;
@@ -105,6 +105,16 @@ struct ScanArgs {
   int n_q, n_slots;
 };
 
+// One step of a block of the tensor-core body: the block's slots read
+// `live` contiguous rows of the table from row0 on (a prefix of the slots;
+// the others are masked), and the first one folds as column col0. A row-pair
+// walk (K6: a packed row scores two logical rows) also says how many of
+// them, again a prefix, have a live second row.
+struct BlockStep {
+  long long row0;
+  int col0, live, live2;
+};
+
 // The flat scan's walk: slot s folds columns s, s + S, s + 2S, ... below
 // `limit` (min(count, n_rows)); column c is row c of the table.
 // A walk gives, for the warp owning `slot` in the query tile at q0, its
@@ -120,14 +130,13 @@ struct FlatWalk {
   __device__ __forceinline__ long long col(int slot, int, long long u) const {
     return slot + u * n_slots;
   }
-  // Step u of the w slots from s0 on (the tensor-core body's block): the
-  // first one's column, and how many of them, a prefix, are live. Their
-  // rows are contiguous in the table.
-  __device__ __forceinline__ int block_rows(int s0, int, long long u, int w,
-                                            long long& col0) const {
-    col0 = s0 + u * n_slots;
+  // Step u of the w slots from s0 on (the tensor-core body's block): their
+  // rows are contiguous in the table, and the live ones are a prefix.
+  __device__ __forceinline__ BlockStep block_step(int s0, int, long long u, int w) const {
+    const long long col0 = s0 + u * n_slots;
     const long long left = limit - col0;
-    return left <= 0 ? 0 : (left < w ? static_cast<int>(left) : w);
+    return {col0, static_cast<int>(col0),
+            left <= 0 ? 0 : (left < w ? static_cast<int>(left) : w), 0};
   }
 };
 
@@ -156,9 +165,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Bytes of one stage of a warp's ring: the row, then a 16-byte tail with
-// what the kernel folds it with (scan_kernel: its scale and alive entries
-// and its column; K6: the scales of its row pair, the column and how many
-// of the pair are live).
+// what the kernel folds it with (its scale and alive entries and its
+// column).
 __host__ __device__ constexpr int stage_bytes(int row_bytes) { return row_bytes + 16; }
 static_assert((kScanStages & (kScanStages - 1)) == 0, "the ring index is a mask");
 
@@ -167,7 +175,7 @@ __device__ __forceinline__ void copy_row(char* dst, const char* src, int row_byt
   for (int c = lane; c < row_bytes / 16; c += 32) cp_async16(dst + 16 * c, src + 16 * c);
 }
 
-// The ring protocol of every scan kernel, for the n steps of one warp's
+// The ring protocol of the SIMT body, for the n steps of one warp's
 // walk. request(s, u) issues step u's copies (none past the walk's end)
 // and its tail into stage s and commits one group, so the wait below
 // counts stages; read(stage, step) takes a landed stage out into a Step
@@ -418,9 +426,11 @@ struct FloatTileOp {
 //
 // K1 on float32 and bf16 rows and K5 on int8, bf16 and float32 rows at two
 // queries or more in the non-exact modes (bf16 inputs, f32 accumulate:
-// MmaTileOp below); K2 on int8 rows against int8 queries (s8 x s8 -> s32,
-// fused_topk_int8.cu) and K4 on packed int4 rows in both its modes
-// (fused_topk_int4.cu) at every batch size. The SIMT body above reads its query tile from
+// MmaTileOp below); at every batch size K3 with K5's int8 product on the
+// flat walk, K2 on int8 rows against int8 queries (s8 x s8 -> s32,
+// fused_topk_int8.cu), K4 on packed int4 rows in both its modes
+// (fused_topk_int4.cu) and K6 on row-pair packed int4 rows, two folds a step
+// (ivf_batch4.cu). The SIMT body above reads its query tile from
 // shared memory once per row (12-48 KB a row for 32 queries at D = 384) and
 // issues every product on the FP32 or integer pipe; this one
 //   - stages the block's query tile once, up to 128 queries, in the
@@ -428,7 +438,7 @@ struct FloatTileOp {
 //     128;
 //   - gives the block's kW slots one producer warp: a block step, the rows
 //     of the kW slots at one step of the walk, is kW contiguous rows of the
-//     table (flat: columns u * S + s0 ...; K5: rows of one chunk), so one
+//     table (flat: columns u * S + s0 ...; K5, K6: rows of one chunk), so one
 //     bulk copy (the Tensor Memory Accelerator) brings its live prefix into
 //     a ring stage, and an mbarrier says when it landed. The producer keeps
 //     up to kRing steps in flight while the consumer warps score, so the
@@ -437,7 +447,7 @@ struct FloatTileOp {
 //     queries of the tile, score a group of 16 * kMT steps at a time with
 //     mma.sync: A is its slot's row in those stages, B the query tile, read
 //     with ldmatrix once per group. `Op` supplies the products (its operand
-//     types, the A conversion, the k-loop). Two m-tiles a group (K2, K4)
+//     types, the A conversion, the k-loop). Two m-tiles a group (K2, K4, K6)
 //     give a lone warp on its scheduler two independent chains of products
 //     and halve the tile reads and barrier waits a row; they need a ring of
 //     more than 32 stages and 2 * kNT * 4 accumulators. With kG > 1 query groups
@@ -448,7 +458,10 @@ struct FloatTileOp {
 //     queries at a time, to a per-warp 16 x 32 score tile in shared memory, each score
 //     one rounding of the dot times its row's scale, or -1e30 for a masked
 //     or dead step (a no-op in the fold), and lane l folds query l's 16
-//     scores in step order through the same SlotBank. A group with no live
+//     scores in step order through the same SlotBank; an Op with two folds
+//     a step (K6) passes each of its two score sets through the tile in turn
+//     into banks of their own, so each slot still sees its candidates in
+//     step order. A group with no live
 //     step is neither scored nor folded. A step's first column, its live
 //     rows and their scale and alive entries come with the stage: the
 //     producer reads them a batch ahead and writes them behind the rows, so
@@ -470,7 +483,12 @@ constexpr int kScoreStride = kFoldQ + 8;         // floats per step of the score
 constexpr int kMmaMaxDim = 384;                  // the widest row the body takes
 constexpr int kMaxBlockSmem = 232448;            // shared memory a block may have
 constexpr int kMaxMT = 2;                        // m-tiles (16 steps) a group at most
-constexpr int kWarpSmem = kMmaSteps * kScoreStride * 4 + kMaxMT * kMmaSteps * 8;  // score tile, tails
+constexpr int kGroupSteps = kMaxMT * kMmaSteps;  // steps a group at most: one a lane
+// A consumer warp's shared memory: its score tile, and a group's step tails
+// for each fold of a step.
+__host__ __device__ constexpr int warp_smem(int folds) {
+  return kMmaSteps * kScoreStride * 4 + folds * kGroupSteps * 8;
+}
 constexpr int kMaxRing = 48;                     // stages a ring holds at most, per m-tile of a group
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -572,6 +590,13 @@ __device__ __forceinline__ void stage_s8_tile(char* tile, int stride, const char
 // What the body asks of an Op (MmaTileOp below; Int8qMmaOp, ShiftMmaOp and
 // DeferredMmaOp in fused_topk_int8.cu and fused_topk_int4.cu):
 //   Op::Acc                     float or int accumulators
+//   Op::kFolds                  folds a step: 1, or 2 where a row scores two
+//                               logical rows (K6): fold f of the warp's slot
+//                               s lands in slot s + f * S / kFolds with
+//                               column col + f * S / kFolds, the block grid
+//                               covers S / kFolds slots, and the second
+//                               fold's scale rides where the alive entries
+//                               do (such a scan has none)
 //   Op::kTail                   bytes of a ring stage past its rows: at
 //                               least stage_tail_bytes(kW), a multiple of 16
 //   Op::kMaxRowBytes, Op::max_tile_bytes(tq)   at the widest row, to size the ring
@@ -581,16 +606,18 @@ __device__ __forceinline__ void stage_s8_tile(char* tile, int stride, const char
 //   op.products<kNT, kMT>(acc, ar, tile, qbase, lane)
 //       kMT m-tiles a group: a warp scores 16 * kMT steps at a time, and a B
 //       fragment read serves them all;
-//       acc[t] += the warp's rows at steps 16t + lane / 4 (ar[2t]) and 16t +
-//       lane / 4 + 8 (ar[2t + 1]) against queries qbase .. qbase + kNT * 8
-//       of the tile, in mma.sync's fragment layout (acc[t][j][0..1]: step
-//       16t + lane / 4, queries 8j + 2 * (lane % 4) and the next;
-//       acc[t][j][2..3]: step 16t + lane / 4 + 8).
+//       acc[kFolds * t + f] += fold f's raw scores of the warp's rows at
+//       steps 16t + lane / 4 (ar[2t]) and 16t + lane / 4 + 8 (ar[2t + 1])
+//       against queries qbase .. qbase + kNT * 8 of the tile, in mma.sync's
+//       fragment layout (acc[.][j][0..1]: step 16t + lane / 4, queries 8j +
+//       2 * (lane % 4) and the next; acc[.][j][2..3]: step 16t + lane / 4 +
+//       8).
 
 // float32 queries and rows of d elements (d % 16 == 0) for the bf16 product.
 template <class Rows>
 struct MmaTileOp {
   using Acc = float;
+  static constexpr int kFolds = 1;
   static constexpr int kTail = Rows::kTail;
   static constexpr int kMaxRowBytes = Rows::kElemBytes * kMmaMaxDim;
   __host__ __device__ static constexpr int max_tile_bytes(int tq) {
@@ -653,7 +680,7 @@ struct MmaTileOp {
 // the padding, two mbarriers).
 template <class Op, int kW, int kG, int kMT>
 __host__ __device__ constexpr int mma_ring(int tq) {
-  const int fixed = Op::max_tile_bytes(tq) + kW * kG * kWarpSmem;
+  const int fixed = Op::max_tile_bytes(tq) + kW * kG * warp_smem(Op::kFolds);
   const int stage = kW * Op::kMaxRowBytes + Op::kTail + 16;
   const int ring = (kMaxBlockSmem - fixed) / stage;
   return ring > kMT * kMaxRing ? kMT * kMaxRing : ring;
@@ -694,12 +721,15 @@ struct StepTail {
 };
 
 // A block step's tail in its ring stage, behind the kW rows: the scale and
-// the alive entry of each row (1 where the scan has none), then the first
-// row's column and how many of the kW, a prefix, are live.
+// the alive entry of each row (1 where the scan has none; with two folds a
+// step, the scale of the row's second fold), then the first row's column
+// and, a byte each, how many of the kW, a prefix, are live and how many
+// have a live second fold.
 __host__ __device__ constexpr int stage_tail_bytes(int kW) { return 8 * kW + 8; }
 
-// kW slots a block, kG query groups of kNT n-tiles (8 queries) each: kW *
-// kG consumer warps and the producer; kMT m-tiles (16 steps) a group.
+// kW slots a block (kW rows a step), kG query groups of kNT n-tiles (8
+// queries) each: kW * kG consumer warps and the producer; kMT m-tiles (16
+// steps) a group; Op::kFolds folds a step.
 template <class Op, int kW, int kNT, int kG, int kMT, class Walk, bool kKeep2, bool kAlive>
 __global__ void __launch_bounds__((kW * kG + 1) * 32)
 mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
@@ -708,17 +738,21 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   static_assert(kW % 4 == 0 && Op::kTail % 16 == 0 && Op::kTail >= stage_tail_bytes(kW),
                 "a stage holds its step's tail behind the rows, 16-byte aligned");
   using Acc = typename Op::Acc;
+  constexpr int kF = Op::kFolds;
+  static_assert(kF == 1 || (kF == 2 && !kAlive), "a second fold's scale takes the alive entry's place");
   constexpr int kSteps = kMT * kMmaSteps;  // steps a group: one a lane at most
   static_assert(kMT >= 1 && kMT <= kMaxMT, "a lane waits for one step of a group");
   constexpr int kTileQ = kNT * 8 * kG;
   constexpr int kRing = mma_ring<Op, kW, kG, kMT>(kTileQ);
   static_assert(kRing > kSteps, "the ring holds a group and more");
   constexpr int kPasses = (kNT * 8 + kFoldQ - 1) / kFoldQ;
+  constexpr int kWarpSmem = warp_smem(kF);
   extern __shared__ uint4 smem_raw[];
   char* const tile = reinterpret_cast<char*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int s0 = blockIdx.x * kW;
+  const int gap = a.n_slots / kF;  // from a slot and its column to its next fold's
   const int q0 = blockIdx.y * kMmaTileQ;
   const int nq = min(kTileQ, a.n_q - q0);
   const int row_bytes = op.row_bytes();
@@ -749,18 +783,19 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     // step's tail from device memory a batch ahead, writes it behind the
     // stage's rows, and its arrive publishes it with the rows.
     struct Fetched {
-      long long col0;
-      int live;
-      float scale[kW], alive[kW];
+      BlockStep at;
+      float scale[kW], second[kW];  // second: the alive entry, or the second fold's scale
     };
     auto fetch = [&](int u) {
       Fetched f;
-      f.col0 = 0;
-      f.live = lane < kSteps && u < nb ? walk.block_rows(s0, q0, u, kW, f.col0) : 0;
+      f.at = lane < kSteps && u < nb ? walk.block_step(s0, q0, u, kW) : BlockStep{0, 0, 0, 0};
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
-        f.scale[i] = a.scales && i < f.live ? a.scales[f.col0 + i] : 1.f;
-        f.alive[i] = kAlive && i < f.live ? a.alive[f.col0 + i] : 1.f;
+        f.scale[i] = a.scales && i < f.at.live ? a.scales[(long long)f.at.col0 + i] : 1.f;
+        if constexpr (kF == 2)
+          f.second[i] = a.scales && i < f.at.live2 ? a.scales[(long long)f.at.col0 + gap + i] : 1.f;
+        else
+          f.second[i] = kAlive && i < f.at.live ? a.alive[(long long)f.at.col0 + i] : 1.f;
       }
       return f;
     };
@@ -777,13 +812,14 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
           *reinterpret_cast<float4*>(tail + i) =
               make_float4(cur.scale[i], cur.scale[i + 1], cur.scale[i + 2], cur.scale[i + 3]);
           *reinterpret_cast<float4*>(tail + kW + i) =
-              make_float4(cur.alive[i], cur.alive[i + 1], cur.alive[i + 2], cur.alive[i + 3]);
+              make_float4(cur.second[i], cur.second[i + 1], cur.second[i + 2], cur.second[i + 3]);
         }
-        *reinterpret_cast<int2*>(tail + 2 * kW) = make_int2(static_cast<int>(cur.col0), cur.live);
-        if (cur.live > 0) {
-          mbar_expect_tx(full + 8 * s, cur.live * row_bytes);
-          bulk_copy(smem_addr(ring + s * sbytes), rows + cur.col0 * row_bytes,
-                    cur.live * row_bytes, full + 8 * s);
+        *reinterpret_cast<int2*>(tail + 2 * kW) =
+            make_int2(cur.at.col0, cur.at.live | cur.at.live2 << 8);
+        if (cur.at.live > 0) {
+          mbar_expect_tx(full + 8 * s, cur.at.live * row_bytes);
+          bulk_copy(smem_addr(ring + s * sbytes), rows + cur.at.row0 * row_bytes,
+                    cur.at.live * row_bytes, full + 8 * s);
         } else {
           mbar_arrive(full + 8 * s);
         }
@@ -793,8 +829,8 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     return;
   }
 
-  // A consumer: warp g * kW + w owns slot s0 + w for the queries of group g
-  // and walks the block's steps.
+  // A consumer: warp g * kW + w owns slot s0 + w (and, with two folds, slot
+  // s0 + w + gap) for the queries of group g and walks the block's steps.
   const int w = warp % kW;
   const int qbase = warp / kW * (kNT * 8);
   const int slot = s0 + w;
@@ -802,12 +838,17 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   StepTail* const tails = reinterpret_cast<StepTail*>(scores + kMmaSteps * kScoreStride);
   const int r = lane >> 2;  // the A / C fragment's step of an m-tile (and step + 8)
   const int c = lane & 3;   // its column pair
-  SlotBank<kKeep2> bank[kPasses];
-  Acc acc[kMT][kNT][4];
+  // Fold f, pass p: bank[f * kPasses + p]. One-dimensional on purpose: as
+  // bank[kF][kPasses], nvcc left the second row without SlotBank's
+  // default member initialisers (its banks started at 0, not -1e30).
+  SlotBank<kKeep2> bank[kF * kPasses];
+  Acc acc[kF * kMT][kNT][4];
 
   for (int u0 = 0; u0 < nb; u0 += kSteps) {
     // Lane l waits for step u0 + l and takes this slot's part of its tail.
-    StepTail mine{-1, 0.f};
+    StepTail mine[kF];
+#pragma unroll
+    for (int f = 0; f < kF; ++f) mine[f] = StepTail{-1, 0.f};
     const bool has_step = lane < kSteps && u0 + lane < nb;
     if (has_step) {
       const int u = u0 + lane;
@@ -815,15 +856,21 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
       const float* const tail =
           reinterpret_cast<const float*>(ring + u % kRing * sbytes + kW * row_bytes);
       const int2 at = *reinterpret_cast<const int2*>(tail + 2 * kW);  // first column, live rows
-      if (w < at.y && (!kAlive || tail[kW + w] > 0.f))
-        mine = StepTail{at.x + w, (a.scales ? tail[w] : 1.f) * a.scale_mul};
+      if (w < (at.y & 0xff) && (kF == 2 || !kAlive || tail[kW + w] > 0.f))
+        mine[0] = StepTail{at.x + w, (a.scales ? tail[w] : 1.f) * a.scale_mul};
+      if constexpr (kF == 2)
+        if (w < at.y >> 8) mine[1] = StepTail{at.x + gap + w, tail[kW + w] * a.scale_mul};
     }
-    if (lane < kSteps) tails[lane] = mine;
-    const bool any = __ballot_sync(0xffffffffu, mine.col >= 0) != 0u;
+    if (lane < kSteps) {
+#pragma unroll
+      for (int f = 0; f < kF; ++f) tails[f * kGroupSteps + lane] = mine[f];
+    }
+    // A second fold is live only where the first is.
+    const bool any = __ballot_sync(0xffffffffu, mine[0].col >= 0) != 0u;
     __syncwarp();
     if (any) {
 #pragma unroll
-      for (int t = 0; t < kMT; ++t)
+      for (int t = 0; t < kF * kMT; ++t)
 #pragma unroll
         for (int j = 0; j < kNT; ++j)
           acc[t][j][0] = acc[t][j][1] = acc[t][j][2] = acc[t][j][3] = Acc(0);
@@ -837,41 +884,48 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     __syncwarp();  // the group's rows and tails are read: release its stages
     if (has_step) mbar_arrive(empty + 8 * ((u0 + lane) % kRing));
     if (!any) continue;
-    // The m-tiles' scores go through the one 16-step score tile in turn,
-    // so the fold stays in step order.
+    // The m-tiles' scores, fold by fold, go through the one 16-step score
+    // tile in turn, so each slot's fold stays in step order.
 #pragma unroll
     for (int t = 0; t < kMT; ++t) {
-      const StepTail t0 = tails[kMmaSteps * t + r], t8 = tails[kMmaSteps * t + r + 8];
 #pragma unroll
-      for (int p = 0; p < kPasses; ++p) {
+      for (int f = 0; f < kF; ++f) {
+        const StepTail* const tt = tails + f * kGroupSteps + kMmaSteps * t;
+        const StepTail t0 = tt[r], t8 = tt[r + 8];
 #pragma unroll
-        for (int jj = 0; jj < 4 && 4 * p + jj < kNT; ++jj) {
-          const Acc* const cc = acc[t][4 * p + jj];
-          // One rounding of the dot (an integer dot's only one), then the
-          // scale, as scan_kernel.
-          const float2 lo = t0.col >= 0 ? make_float2(static_cast<float>(cc[0]) * t0.mul,
-                                                      static_cast<float>(cc[1]) * t0.mul)
-                                        : make_float2(kNegInf, kNegInf);
-          const float2 hi = t8.col >= 0 ? make_float2(static_cast<float>(cc[2]) * t8.mul,
-                                                      static_cast<float>(cc[3]) * t8.mul)
-                                        : make_float2(kNegInf, kNegInf);
-          *reinterpret_cast<float2*>(scores + r * kScoreStride + 8 * jj + 2 * c) = lo;
-          *reinterpret_cast<float2*>(scores + (r + 8) * kScoreStride + 8 * jj + 2 * c) = hi;
+        for (int p = 0; p < kPasses; ++p) {
+#pragma unroll
+          for (int jj = 0; jj < 4 && 4 * p + jj < kNT; ++jj) {
+            const Acc* const cc = acc[kF * t + f][4 * p + jj];
+            // One rounding of the dot (an integer dot's only one), then the
+            // scale, as scan_kernel.
+            const float2 lo = t0.col >= 0 ? make_float2(static_cast<float>(cc[0]) * t0.mul,
+                                                        static_cast<float>(cc[1]) * t0.mul)
+                                          : make_float2(kNegInf, kNegInf);
+            const float2 hi = t8.col >= 0 ? make_float2(static_cast<float>(cc[2]) * t8.mul,
+                                                        static_cast<float>(cc[3]) * t8.mul)
+                                          : make_float2(kNegInf, kNegInf);
+            *reinterpret_cast<float2*>(scores + r * kScoreStride + 8 * jj + 2 * c) = lo;
+            *reinterpret_cast<float2*>(scores + (r + 8) * kScoreStride + 8 * jj + 2 * c) = hi;
+          }
+          __syncwarp();
+#pragma unroll
+          for (int st = 0; st < kMmaSteps; ++st)
+            bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
+          __syncwarp();
         }
-        __syncwarp();
-#pragma unroll
-        for (int st = 0; st < kMmaSteps; ++st)
-          bank[p].fold(scores[st * kScoreStride + lane], tails[kMmaSteps * t + st].col);
-        __syncwarp();
       }
     }
   }
 #pragma unroll
-  for (int p = 0; p < kPasses; ++p) {
-    const int qq = qbase + kFoldQ * p + lane;
-    if (kFoldQ * p + lane < kNT * 8 && qq < nq)
-      bank[p].store(a.v, a.i, a.v2, a.i2, (long long)(q0 + qq) * a.n_slots + slot);
-  }
+  for (int f = 0; f < kF; ++f)
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int qq = qbase + kFoldQ * p + lane;
+      if (kFoldQ * p + lane < kNT * 8 && qq < nq)
+        bank[f * kPasses + p].store(a.v, a.i, a.v2, a.i2,
+                                    (long long)(q0 + qq) * a.n_slots + slot + f * gap);
+    }
 }
 
 template <class Op, int kW, int kNT, int kG, int kMT, class Walk, bool kKeep2, bool kAlive>
@@ -881,23 +935,28 @@ cudaError_t launch_mma_scan(const Op& op, const Walk& walk, const ScanArgs& a,
   auto kernel = mma_scan_kernel<Op, kW, kNT, kG, kMT, Walk, kKeep2, kAlive>;
   const size_t smem = op.tile_bytes(kTileQ) +
                       (size_t)mma_ring<Op, kW, kG, kMT>(kTileQ) * (kW * op.row_bytes() + Op::kTail + 16) +
-                      kW * kG * kWarpSmem;
+                      kW * kG * warp_smem(Op::kFolds);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.n_slots / kW, (a.n_q + kMmaTileQ - 1) / kMmaTileQ);
+  const dim3 grid(a.n_slots / (kW * Op::kFolds), (a.n_q + kMmaTileQ - 1) / kMmaTileQ);
   kernel<<<grid, (kW * kG + 1) * 32, smem, stream>>>(op, walk, a);
   return cudaGetLastError();
 }
 
+// n_slots must be a multiple of kW * Op::kFolds.
 template <class Op, int kW, int kNT, int kG, int kMT, class Walk>
 cudaError_t launch_mma_flags(const Op& op, const Walk& walk, const ScanArgs& a, bool keep2,
                              cudaStream_t stream) {
-  if (keep2)
-    return a.alive ? launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, true, true>(op, walk, a, stream)
-                   : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, true, false>(op, walk, a, stream);
-  return a.alive ? launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, true>(op, walk, a, stream)
-                 : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, false>(op, walk, a, stream);
+  if constexpr (Op::kFolds == 1) {
+    if (a.alive)
+      return keep2 ? launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, true, true>(op, walk, a, stream)
+                   : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, true>(op, walk, a, stream);
+  } else if (a.alive) {
+    return cudaErrorInvalidValue;
+  }
+  return keep2 ? launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, true, false>(op, walk, a, stream)
+               : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, false>(op, walk, a, stream);
 }
 
 // The non-exact float scan of a walk (bf16 inputs, f32 accumulate): one
@@ -905,7 +964,7 @@ cudaError_t launch_mma_flags(const Op& op, const Walk& walk, const ScanArgs& a, 
 // fills no mma), more on the tensor-core body with the fewest n-tiles that
 // hold the batch (up to 128 queries a tile). `Unit` and `Rows` name the same
 // row type for the two bodies. Needs d % 16 == 0, d <= 384, n_slots % 8 ==
-// 0 and 16-byte aligned rows; a Walk for the body also gives block_rows.
+// 0 and 16-byte aligned rows; a Walk for the body also gives block_step.
 template <class Unit, class Rows, class Walk>
 cudaError_t launch_bf16_scan(const float* q, const void* db, int d, const Walk& walk,
                              const ScanArgs& a, bool keep2, cudaStream_t stream) {

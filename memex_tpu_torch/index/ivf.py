@@ -77,13 +77,30 @@ def kmeans_fit(vectors: torch.Tensor, n_clusters: int, iters: int = 10, seed: in
     v16 = vectors.to(torch.bfloat16).float()
     for _ in range(iters):
         assign = kmeans_assign(vectors, centroids)
-        sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=dev)
-        sums.index_add_(0, assign, v16)
+        sums = cluster_sums(v16, assign, n_clusters)
         counts = torch.bincount(assign, minlength=n_clusters).float()[:, None]
         means = sums / torch.clamp(counts, min=1.0)
         means = torch.where(counts > 0, means, centroids)
         centroids = means / torch.clamp(means.norm(dim=1, keepdim=True), min=1e-12)
     return centroids
+
+
+def cluster_sums(rows: torch.Tensor, assign: torch.Tensor, n_clusters: int,
+                 block: int | None = None) -> torch.Tensor:
+    """[C, D] float32 sums of the rows of each cluster, a fixed function of
+    its inputs: blocks of rows in turn, each block as a one-hot product
+    [C, block] @ [block, D] in true float32. (`index_add_` sums with float
+    atomics on the card, in an order that changes from run to run, and the
+    fit would no longer be a function of its seed, as memex_tpu's is.)"""
+    n, d = rows.shape
+    sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=rows.device)
+    ids = torch.arange(n_clusters, device=rows.device)[:, None]
+    if block is None:
+        block = max(1024, (1 << 26) // n_clusters)  # a one-hot block of <= 256 MB
+    for lo in range(0, n, block):
+        onehot = (assign[None, lo : lo + block] == ids).float()
+        sums += scores_f32(onehot, rows[lo : lo + block].float(), exact=True)
+    return sums
 
 
 def kmeans_assign(vectors: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

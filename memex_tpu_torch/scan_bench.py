@@ -1,8 +1,9 @@
-"""Bank-only times of the scans K1, K2, K4 and K5 on one card, to compare
-two checkouts of this repository in one call.
+"""Bank-only times of the seven scans K1-K7 on one card, to compare two
+checkouts of this repository in one call.
 
     python memex_tpu_torch/scan_bench.py [--root DIR] [--label NAME]
-                                         [--kernels K1,K2,K4,K5] [--queries 1,32,128]
+                                         [--kernels K1,K2,K3,K4,K5,K6,K7]
+                                         [--queries 1,32,128]
 
 Imports memex_tpu_torch from DIR (default: the checkout holding this file),
 builds its kernels there, and times with CUDA events (median of 20 after 3
@@ -11,6 +12,9 @@ warm-up calls):
     rows, count = N - 12345, ~1% dead rows, keep2 off;
   - K2, `fused_score_bank_int8q_cuda`, on the int8 codes of the same rows,
     banks = 4 (S = 512, the flat index's width), int8 queries;
+  - K3, `fused_score_bank_int8_cuda`, on the same codes with float32
+    queries (rounded to bf16 in the kernel), banks = 8 (S = 1,024: the flat
+    index's `query_quantize=False` call);
   - K4, `int4q_candidates_cuda`, on their packed int4 codes, banks = 8, in
     shift and in deferred mode: the wrapper's time (it makes the scan's
     query operands from the float32 queries first) and, as kernel_ms, the
@@ -19,13 +23,22 @@ warm-up calls):
     configuration's shape (C = 4096 clusters, M = 3072, D = 384, S = 1024,
     bucket sizes uniform in [1536, 3072]), over the union that
     `route_union` gives random unit queries at nprobe = 64;
+  - K6, `ivf_batch4_bank_cuda`, on the int4 row-pair mirror of that table
+    (`pack_int4_buckets`, banks = 8), over the same unions;
+  - K7, `ivf_probe_bank_cuda`, on that table with each query's own 64
+    probes (S = 256);
 at Q = 1, 32 and 128 (or --queries). Beside each time it prints the bound (the larger of
 the bytes the function must move at 3.35 TB/s and its products at the
 card's tensor-core peak for the product's type, live rows only) and one
 PyTorch call of the same function's product on operands laid out
-beforehand (library_ms): `torch.matmul` of bf16 operands for K1 and K5,
-`torch._int_mm` of the int8 queries and codes for K2 and K4 (null where
-its shape rules refuse the batch). One JSON line per measurement, with the card's
+beforehand (library_ms): `torch.matmul` of bf16 operands for K1, K3, K5
+and K6 (K6: against the union's unpacked int4 codes), `torch._int_mm` of
+the int8 queries and codes for K2 and K4 (null where its shape rules refuse
+the batch), `torch.bmm` of each query against its probes' whole buckets
+for K7. `--kernels KM` adds the sums of one k-means iteration at the 10M
+build's shape (262,144 x 384 sample rows, 4,096 clusters): the fixed-order
+`cluster_sums` beside `index_add_`, and whether two runs of each agree bit
+for bit. One JSON line per measurement, with the card's
 name and power limit. Inputs are made from --seed on the card, so two
 checkouts see the same ones.
 """
@@ -47,6 +60,8 @@ PEAK_OPS_PER_S = {           # dense, NVIDIA's data sheet, at 700 W
 }
 N_ROWS, DIM, COUNT_GAP = 1 << 20, 384, 12345
 IVF_C, IVF_M, IVF_NPROBE, IVF_S = 4096, 3072, 64, 1024
+IVF_PROBE_S = 256  # K7's bank width
+ALL_KERNELS = "K1,K2,K3,K4,K5,K6,K7"
 
 
 def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
@@ -106,12 +121,39 @@ def k2_bound(q_n: int, live: int, limit: int, n_slots: int) -> tuple[float, str]
     return bound(n_bytes, 2.0 * q_n * live * DIM, "int8")
 
 
+def k3_bound(q_n: int, live: int, limit: int, n_slots: int) -> tuple[float, str]:
+    """K3: K2's rows, scales and alive entries, float32 queries, the bank;
+    2 * Q * D bf16 operations a row."""
+    n_bytes = live * (DIM + 4) + limit * 4 + q_n * DIM * 4 + q_n * n_slots * 8
+    return bound(n_bytes, 2.0 * q_n * live * DIM, "bf16")
+
+
 def k4_bound(q_n: int, live: int, limit: int, n_slots: int, deferred: bool) -> tuple[float, str]:
     """K4: live packed rows (D / 2 bytes) with their scales, the alive
     entries, the float32 queries, the bank; 2 * Q * D operations a row, int8
     in shift mode, 16-bit floats in deferred mode."""
     n_bytes = live * (DIM // 2 + 4) + limit * 4 + q_n * DIM * 4 + q_n * n_slots * 8
     return bound(n_bytes, 2.0 * q_n * live * DIM, "bf16" if deferred else "int8")
+
+
+def k6_bound(q_n: int, live_packed: int, live: int, n_chunks: int, n_slots: int,
+             n_clusters: int) -> tuple[float, str]:
+    """K6: the union's live packed rows (D bytes a row pair) and a scale for
+    each live logical row, its walk and the bucket sizes, the queries, the
+    bank; two dots a packed row, 2 * Q * D operations a logical row."""
+    n_bytes = (live_packed * DIM + live * 4 + n_chunks * 4 + n_clusters * 4 + q_n * DIM * 4
+               + q_n * n_slots * 8)
+    return bound(n_bytes, 2.0 * q_n * live * DIM, "bf16")
+
+
+def k7_bound(q_n: int, rows_read: int, rows_scored: int, n_probes: int, row_bytes: int,
+             n_slots: int, n_clusters: int) -> tuple[float, str]:
+    """K7: each probed bucket's live rows (and scales) read once, the probes
+    and the bucket sizes, the queries, the bank; each query scores its own
+    probes' rows, 2 * D operations each."""
+    n_bytes = (rows_read * row_bytes + n_probes * 4 + n_clusters * 4 + q_n * DIM * 4
+               + q_n * n_slots * 8)
+    return bound(n_bytes, 2.0 * rows_scored * DIM, "bf16")
 
 
 def int_mm_ms(a, b_t, what: str) -> float | None:
@@ -143,7 +185,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="K1,K2,K4,K5")
+    ap.add_argument("--kernels", default=ALL_KERNELS)
     ap.add_argument("--queries", default="1,32,128", help="batch sizes, comma-separated")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
@@ -193,8 +235,9 @@ def main(argv: list[str] | None = None) -> int:
 
     # K2 and K4 on the int8 and the packed int4 codes of the same rows. The
     # library call multiplies all N rows (N % 8 == 0, as _int_mm asks).
-    if which & {"K2", "K4"}:
+    if which & {"K2", "K3", "K4"}:
         codes, scales = ft.quantize_rows_int8(db32)
+    if "K4" in which:
         packed, c4 = pack_int4(db32)
     del db32
     torch.cuda.empty_cache()
@@ -205,6 +248,18 @@ def main(argv: list[str] | None = None) -> int:
         b_ms, b_by = k2_bound(q_n, live, limit, 512)
         emit(kernel="K2", rows="int8", Q=q_n, n_rows=limit, live_rows=live, ms=ms,
              library_ms=int_mm_ms(q8, codes.t(), "K2"), bound_ms=b_ms, bound_by=b_by)
+    if "K3" in which:
+        codes16 = codes[:limit].to(torch.bfloat16)
+    for q_n, q in queries.items() if "K3" in which else ():
+        ms = cuda_ms(lambda: ft.fused_score_bank_int8_cuda(codes, scales, q, count=limit,
+                                                           alive=alive, banks=8))
+        q16 = q.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.matmul(q16, codes16.T))
+        b_ms, b_by = k3_bound(q_n, live, limit, 1024)
+        emit(kernel="K3", rows="int8", Q=q_n, n_rows=limit, live_rows=live, ms=ms,
+             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    if "K3" in which:
+        del codes16
     for deferred in (False, True) if "K4" in which else ():
         for q_n, q in queries.items():
             ms = cuda_ms(lambda: ft.int4q_candidates_cuda(packed, scales, q, count=limit,
@@ -230,11 +285,11 @@ def main(argv: list[str] | None = None) -> int:
             emit(kernel="K4", rows="int4", mode="deferred" if deferred else "shift", Q=q_n,
                  n_rows=limit, live_rows=live, ms=ms, kernel_ms=cuda_ms(kernel_only),
                  library_ms=int_mm_ms(q8, c4.t(), "K4"), bound_ms=b_ms, bound_by=b_by)
-    if which & {"K2", "K4"}:
-        del codes, scales, packed, c4
-    del alive
+    codes = scales = packed = c4 = alive = None
     torch.cuda.empty_cache()
-    if "K5" not in which:
+    if "KM" in which:
+        kmeans_sums(emit, gen, dev)
+    if not which & {"K5", "K6", "K7"}:
         return 0
 
     # K5 on an int8 table of the 10M configuration's shape.
@@ -246,26 +301,95 @@ def main(argv: list[str] | None = None) -> int:
     c = torch.randn((IVF_C, DIM), generator=gen, device=dev)
     centroids = c / c.norm(dim=1, keepdim=True)
     flat = data.view(-1, DIM)
-    for q_n, q in queries.items():
+    if "K6" in which:
+        from memex_tpu_torch.ops import ivf_batch4 as ib4
+
+        data4, rscales4 = ib4.pack_int4_buckets(data, rscales, banks=IVF_S // 128)
+    for q_n, q in queries.items() if which & {"K5", "K6"} else ():
         clist, nact = ib.route_union(centroids, q, IVF_NPROBE)
         walk, n_chunks = ib._chunk_walk(sizes, clist, nact, IVF_M, IVF_S)
-        ms = cuda_ms(lambda: ib.ivf_batch_bank_cuda(data, rscales, sizes, walk, n_chunks, q,
-                                                    banks=IVF_S // 128))
         n_ch = int(n_chunks[0])
-        w = walk[:n_ch].long()
-        row = (w & 255)[:, None] * IVF_S + torch.arange(IVF_S, device=dev)[None, :]
-        ok = row < sizes.long()[w >> 8][:, None]
-        idx = ((w >> 8)[:, None] * IVF_M + row)[ok]
-        union16 = flat[idx].to(torch.bfloat16)
-        q16 = q.to(torch.bfloat16)
-        lib_ms = cuda_ms(lambda: torch.matmul(q16, union16.T))
+        col, ok = ib._union_columns(walk, n_chunks, sizes, IVF_M, IVF_S)
+        idx = col[ok]  # the union's live rows
         n_live = int(idx.numel())
-        b_ms, b_by = k5_bound(q_n, n_live, n_ch, DIM + 4, IVF_S, IVF_C)
-        emit(kernel="K5", rows="int8", Q=q_n, union_clusters=int(nact[0]), chunks=n_ch,
-             live_rows=n_live, ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        del union16, idx
+        q16 = q.to(torch.bfloat16)
+        common = dict(Q=q_n, union_clusters=int(nact[0]), chunks=n_ch, live_rows=n_live)
+        if "K5" in which:
+            ms = cuda_ms(lambda: ib.ivf_batch_bank_cuda(data, rscales, sizes, walk, n_chunks, q,
+                                                        banks=IVF_S // 128))
+            union16 = flat[idx].to(torch.bfloat16)
+            lib_ms = cuda_ms(lambda: torch.matmul(q16, union16.T))
+            b_ms, b_by = k5_bound(q_n, n_live, n_ch, DIM + 4, IVF_S, IVF_C)
+            emit(kernel="K5", rows="int8", **common, ms=ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by)
+            del union16
+        if "K6" in which:
+            ms = cuda_ms(lambda: ib4.ivf_batch4_bank_cuda(data4, rscales4, sizes, walk, n_chunks,
+                                                          q, banks=IVF_S // 128))
+            # The union's int4 codes, unpacked: what one matmul would read.
+            union16 = torch.clamp((flat[idx].to(torch.int32) + 8) >> 4, -7, 7).to(torch.bfloat16)
+            lib_ms = cuda_ms(lambda: torch.matmul(q16, union16.T))
+            # A packed row is live with its first row: the first half of a chunk.
+            live_packed = int(ok.view(n_ch, IVF_S)[:, : IVF_S // 2].sum())
+            b_ms, b_by = k6_bound(q_n, live_packed, n_live, n_ch, IVF_S, IVF_C)
+            emit(kernel="K6", rows="int4-pairs", **common, live_packed_rows=live_packed, ms=ms,
+                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            del union16
+        del idx, col, ok
         torch.cuda.empty_cache()
+    if "K6" in which:
+        del data4, rscales4
+        torch.cuda.empty_cache()
+    if "K7" not in which:
+        return 0
+
+    # K7: every query walks its own probes' whole buckets.
+    from memex_tpu_torch.index.ivf import _route
+    from memex_tpu_torch.ops import ivf_scan as isc
+
+    for q_n, q in queries.items():
+        probes = _route(centroids, q, IVF_NPROBE).to(torch.int32)
+        ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(data, rscales, sizes, probes, q))
+        scored = int(sizes.long()[probes.long()].sum())
+        read = int(sizes.long()[torch.unique(probes.long())].sum())
+        buckets = data[probes.long()].reshape(q_n, -1, DIM).to(torch.bfloat16)
+        qb = q.to(torch.bfloat16)[:, None, :]
+        lib_ms = cuda_ms(lambda: torch.bmm(qb, buckets.transpose(1, 2)))
+        del buckets
+        torch.cuda.empty_cache()
+        b_ms, b_by = k7_bound(q_n, read, scored, probes.numel(), DIM + 4, IVF_PROBE_S, IVF_C)
+        emit(kernel="K7", rows="int8", Q=q_n, nprobe=IVF_NPROBE, rows_read=read,
+             rows_scored=scored, ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return 0
+
+
+def kmeans_sums(emit, gen, dev, n: int = IVF_C * 64, runs: int = 5) -> None:
+    """One k-means iteration's per-cluster sums at the 10M build's shape:
+    `cluster_sums` (fixed order) beside `index_add_` (float atomics)."""
+    import torch
+
+    from memex_tpu_torch.index import ivf
+
+    if not hasattr(ivf, "cluster_sums"):
+        print("this checkout's k-means sums with index_add_ only", flush=True)
+        return
+    x = torch.randn((n, DIM), generator=gen, device=dev)
+    rows = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16).float()
+    c = torch.randn((IVF_C, DIM), generator=gen, device=dev)
+    assign = ivf.kmeans_assign(rows, c / c.norm(dim=1, keepdim=True))
+
+    def atomics():
+        return torch.zeros((IVF_C, DIM), device=dev).index_add_(0, assign, rows)
+
+    def fixed():
+        return ivf.cluster_sums(rows, assign, IVF_C)
+
+    emit(kernel="kmeans_sums", rows=n, clusters=IVF_C,
+         ms=cuda_ms(fixed, runs=runs, warmup=1), index_add_ms=cuda_ms(atomics, runs=runs, warmup=1),
+         assign_ms=cuda_ms(lambda: ivf.kmeans_assign(rows, c), runs=runs, warmup=1),
+         bit_equal_runs=all(torch.equal(fixed(), fixed()) for _ in range(3)),
+         index_add_bit_equal_runs=all(torch.equal(atomics(), atomics()) for _ in range(3)),
+         max_abs_diff=(fixed() - atomics()).abs().max().item())
 
 
 if __name__ == "__main__":

@@ -179,6 +179,34 @@ def test_plain_k3_matches_jax(with_alive, count, q_n):
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=SCORE_ATOL)
 
 
+@pytest.mark.parametrize("q_n", [1, 2, 33])
+@pytest.mark.parametrize("banks", [1, 2, 4, 8])
+def test_plain_k3_matches_jax_at_every_bank_width(banks, q_n):
+    """The bank widths the flat index (min(8, block_n // 128)) and the
+    sharded index pass: every S = banks * 128 is a multiple of the 8 slots a
+    block of the CUDA kernel owns. count is no multiple of S, so the last
+    step of the walk is ragged. Indices equal, values within SCORE_ATOL."""
+    rng, codes, scales = _corpus(11 + banks)
+    q = _unit(rng, q_n)
+    alive = (rng.random(N) > 0.2).astype(np.float32)
+    count = N - 37
+    jv, ji = jft.fused_score_topk_int8(
+        jnp.asarray(codes), jnp.asarray(scales), jnp.asarray(q), KK, count=count,
+        alive=jnp.asarray(alive), block_n=1024, banks=banks, interpret=True)
+    tv, ti = ft.fused_score_topk_int8(
+        torch.from_numpy(codes), torch.from_numpy(scales), torch.from_numpy(q), KK,
+        count=count, alive=torch.from_numpy(alive), banks=banks)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=SCORE_ATOL)
+    bank_v, bank_i = ft.int8_bank_reference(
+        torch.from_numpy(codes), torch.from_numpy(scales), torch.from_numpy(q), count,
+        torch.from_numpy(alive), banks=banks)
+    S = banks * 128
+    assert bank_v[0].shape == (q_n, S) and (S % 8) == 0
+    live = bank_v[0].numpy() > -1e29  # a slot with no live row keeps index 0
+    assert (bank_i[0].numpy() % S == np.arange(S)[None, :])[live].all()
+
+
 def test_int8_wrappers_reject_what_they_cannot_take():
     codes = torch.zeros((2048, D), dtype=torch.int8)
     scales = torch.ones(2048)

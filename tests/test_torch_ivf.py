@@ -93,6 +93,31 @@ def test_kmeans_from_a_shared_init():
     np.testing.assert_allclose(own.norm(dim=1).numpy(), 1.0, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["empty-cluster", "one-cluster-holds-most", "many-blocks"])
+def test_cluster_sums_equal_index_add(case):
+    """k-means' per-cluster sums (one-hot products in a fixed order) against
+    `index_add_`, which is sequential on the CPU. Both sum the same float32
+    values, up to 1,700 to a cluster here, in different orders: 1e-6
+    relative to the sum plus 1e-6 absolute."""
+    rng = np.random.default_rng(7)
+    n, n_c = 2000, 12
+    rows = torch.from_numpy(_unit(rng.standard_normal((n, D)))).to(torch.bfloat16).float()
+    assign = rng.integers(0, n_c, n)
+    if case == "empty-cluster":
+        assign[assign == 5] = 6
+    elif case == "one-cluster-holds-most":
+        assign[rng.random(n) < 0.85] = 3
+    assign = torch.from_numpy(assign)
+    old = torch.zeros((n_c, D)).index_add_(0, assign, rows)
+    block = 512 if case == "many-blocks" else None  # four blocks, the last ragged
+    new = tivf.cluster_sums(rows, assign, n_c, block=block)
+    np.testing.assert_allclose(new.numpy(), old.numpy(), rtol=1e-6, atol=1e-6)
+    if case == "empty-cluster":
+        assert not new[5].any()
+    # A fixed function of its inputs.
+    assert torch.equal(new, tivf.cluster_sums(rows, assign, n_c, block=block))
+
+
 CONFIGS = [
     dict(dtype="float32"),
     dict(dtype="float32", use_fused=False),

@@ -168,6 +168,41 @@ def test_k6_and_rerank_match_jax(table, keep2):
     _check_hits(jv, jc, jsl, tv, tc, tsl, _score_fn(table, "int8", False, q))
 
 
+@pytest.mark.parametrize("keep2", [False, True])
+@pytest.mark.parametrize("banks", [4, 8])
+@pytest.mark.parametrize("size", [1, 100, 256, 257, 512, 515])
+def test_k6_matches_jax_where_a_cluster_ends_inside_a_chunk(table, size, banks, keep2):
+    """K6 at both chunk widths (S = 512, 1024: a block of the CUDA kernel
+    owns 4 slot pairs, and S / 2 is a multiple of 4 for either), with a
+    probed cluster whose size ends on the chunk's first row, inside its
+    first half (every second row of a pair dead, and first rows too), on
+    the half's edge, and inside its second half."""
+    sizes = table["sizes"].copy()
+    sizes[2] = size
+    q = table["queries"]
+    j4, jr4 = jb4.pack_int4_buckets(jnp.asarray(table["codes"]), jnp.asarray(table["rscales"]),
+                                    banks=banks)
+    t4, tr4 = tb4.pack_int4_buckets(_t(table["codes"]), _t(table["rscales"]), banks=banks)
+    # Every cluster is active: cluster 2 is in the union whatever the routing.
+    clist, nact = np.arange(C, dtype=np.int32), np.array([C], np.int32)
+    r = 200
+    ref = jb4.ivf_batch_topk4(j4, jr4, jnp.asarray(sizes), jnp.asarray(clist),
+                              jnp.asarray(nact), jnp.asarray(q), r, banks=banks,
+                              interpret=True, keep2=keep2)
+    got = tb4.ivf_batch_topk4(t4, tr4, _t(sizes), _t(clist), _t(nact), _t(q), r, banks=banks,
+                              keep2=keep2)
+    q16 = np.asarray(torch.from_numpy(q).bfloat16().float(), np.float64)
+    hi4 = np.clip((table["codes"].astype(np.int64) + 8) >> 4, -7, 7)
+
+    def score4(qi, c, s):
+        return float(q16[qi] @ hi4[c, s] * table["rscales"][c, s] * 16.0)
+
+    _check_hits(*ref, *got, score4)
+    tv, tc, tsl = (x.numpy() for x in got)
+    assert (tsl < sizes[tc])[tv > -1e29].all()  # no row past its cluster's size
+    assert ((tc == 2) & (tv > -1e29)).sum() <= size * len(q)
+
+
 def test_ivf_batch_search4_rerank_depth(table, monkeypatch):
     """ivf_batch_search4 hands the rerank min(max(rerank * k, 64), S), with
     S the bank width (doubled under keep2)."""

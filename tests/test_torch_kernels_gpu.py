@@ -1,5 +1,6 @@
 """The CUDA kernels (memex_tpu_torch/csrc/fused_topk*.cu: K1-K4; ivf_*.cu:
-K5-K7) against their plain PyTorch versions on the card. Marked `gpu`: without a CUDA
+K5-K7) against their plain PyTorch versions on the card, and k-means'
+determinism there. Marked `gpu`: without a CUDA
 card every test here skips. Run on a card with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -547,3 +548,149 @@ def test_k5_tensor_core_body_matches_plain(cuda, corpus, dtype, keep2, q_n):
         return (q[qi].bfloat16().float() * rr).sum(1) * rscales.reshape(-1)[idx]
 
     _bank_check(bank, plain, score_of)
+
+
+# -- K3's and K6's tensor-core bodies --
+
+
+@pytest.mark.parametrize("q_n", [1] + TC_Q)
+@pytest.mark.parametrize("d,banks", [(384, 8), (48, 8), (384, 4), (384, 1)])
+@pytest.mark.parametrize("corpus", ["random", "duplicates"])
+def test_k3_tensor_core_body_matches_plain(cuda, corpus, d, banks, q_n):
+    """K3 (bf16 queries, int8 rows) on the body at every batch size, a lone
+    query included. The tensor cores sum the d products in another order
+    than the plain version's matmul: values within SCORE_TOL, an index may
+    differ only at a near-tie. count = N - 1234 is no multiple of a block's
+    8 slots and leaves the last group of steps ragged; ~5% dead rows."""
+    gen = torch.Generator(device=cuda).manual_seed(q_n)
+    rows = _rows_of(gen, corpus, N, d, cuda)
+    codes, scales = ft.quantize_rows_int8(rows)
+    q = _tied_queries(gen, corpus, rows, q_n)
+    alive = (torch.rand(N, generator=gen, device=cuda) > 0.05).float()
+
+    def score_of(qi, idx):
+        return (q[qi].bfloat16().float() * codes[idx].float()).sum(1) * scales[idx]
+
+    for kw in (dict(count=N - 1234, alive=alive, banks=banks), dict(banks=banks)):
+        before = ft.LAUNCHES["fused_topk_int8"]
+        bank = ft.fused_score_bank_int8_cuda(codes, scales, q, **kw)
+        assert ft.LAUNCHES["fused_topk_int8"] == before + 1
+        plain = ft.int8_bank_reference(codes, scales, q, **kw)
+        torch.cuda.synchronize()
+        _bank_check(bank, plain, score_of)
+    ki = bank[1][0].long()
+    assert (ki % (banks * 128) == torch.arange(banks * 128, device=cuda)[None, :]).all()
+
+
+def _pair_table(gen, corpus, d, cuda):
+    """An int8 bucket table [IVF_C, IVF_M, d] with ragged buckets: empty and
+    full ones, and sizes that end on a chunk's first row, inside the first
+    half of a chunk (on and off a block's edge) and inside its second."""
+    sizes = torch.randint(0, IVF_M + 1, (IVF_C,), generator=gen, device=cuda).to(torch.int32)
+    sizes[:3] = 0
+    sizes[3:8] = torch.tensor([IVF_M, 1025, 1024 + 300, 1024 + 301, 1024 + 512 + 3],
+                              dtype=torch.int32, device=cuda)
+    rows = _rows_of(gen, corpus, IVF_C * IVF_M, d, cuda)
+    codes, sc = ft.quantize_rows_int8(rows)
+    x = torch.randn((IVF_C, d), generator=gen, device=cuda)
+    return (sizes, rows, codes.reshape(IVF_C, IVF_M, d), sc.reshape(IVF_C, IVF_M),
+            x / x.norm(dim=1, keepdim=True))
+
+
+@pytest.mark.parametrize("q_n", [1] + TC_Q)
+@pytest.mark.parametrize("keep2", [False, True])
+@pytest.mark.parametrize("d,banks", [(384, 8), (384, 4), (96, 8)])
+@pytest.mark.parametrize("corpus", ["random", "duplicates"])
+def test_k6_tensor_core_body_matches_plain(cuda, corpus, d, banks, keep2, q_n):
+    """K6 (row-pair packed int4, two folds a step) on the body, with a walk
+    whose length is not a multiple of 16."""
+    from memex_tpu_torch.ops import ivf_batch as ib
+    from memex_tpu_torch.ops import ivf_batch4 as ib4
+
+    gen = torch.Generator(device=cuda).manual_seed(11 + q_n)
+    sizes, rows, codes, sc, centroids = _pair_table(gen, corpus, d, cuda)
+    data4, rscales4 = ib4.pack_int4_buckets(codes, sc, banks=banks)
+    q = _tied_queries(gen, corpus, rows, q_n)
+    clist, nact = ib.route_union(centroids, q, 24)
+    # The union as clusters 0 .. n - 1: the ragged buckets are among them.
+    nact = torch.clamp(nact, min=8)
+    clist[: int(nact[0])] = torch.arange(int(nact[0]), device=cuda, dtype=clist.dtype)
+    walk, n_chunks = ib._chunk_walk(sizes, clist, nact, IVF_M, banks * 128)
+    if int(n_chunks[0]) % 16 == 0:
+        n_chunks = n_chunks - 1  # a prefix of the walk is a walk
+    assert int(n_chunks[0]) % 16 != 0
+    args = (data4, rscales4, sizes, walk, n_chunks, q)
+    before = ft.LAUNCHES["ivf_batch4"]
+    bank = ib4.ivf_batch4_bank_cuda(*args, banks=banks, keep2=keep2)
+    assert ft.LAUNCHES["ivf_batch4"] == before + 1
+    plain = ib4.ivf_batch4_bank_reference(*args, banks=banks, keep2=keep2)
+    torch.cuda.synchronize()
+    hi4 = torch.clamp((codes.reshape(-1, d).to(torch.int32) + 8) >> 4, -7, 7).float()
+
+    def score_of(qi, idx):
+        return (q[qi].bfloat16().float() * hi4[idx]).sum(1) * rscales4.reshape(-1)[idx]
+
+    _bank_check(bank, plain, score_of)
+    for ki, kv in zip(bank[1], bank[0]):
+        ki, live = ki.long(), kv > -1e29
+        assert ((ki % IVF_M) < sizes[ki // IVF_M])[live].all()
+        slot = torch.arange(banks * 128, device=cuda)[None, :].expand_as(ki)
+        assert ((ki % (banks * 128)) == slot)[live].all()
+
+
+@pytest.mark.parametrize("q_n", [1, 2, 32, 128])
+def test_k6_unpacks_every_byte_value(cuda, q_n):
+    """The index only packs codes in [-7, 7] (bytes in [-119, 119]); the
+    kernel's byte-parallel hi = (b + 8) >> 4 and its b agree with the plain
+    version's int32 arithmetic for all 256 byte values, b + 8 crossing zero
+    and the bytes past 119 included."""
+    from memex_tpu_torch.ops import ivf_batch as ib
+    from memex_tpu_torch.ops import ivf_batch4 as ib4
+
+    gen = torch.Generator(device=cuda).manual_seed(q_n)
+    n_c, m = 4, 2048
+    data4 = torch.randint(-128, 128, (n_c, m // 2, D), generator=gen, device=cuda,
+                          dtype=torch.int8)
+    data4[0, 0, :256] = torch.arange(-128, 128, device=cuda).to(torch.int8)
+    assert torch.unique(data4).numel() == 256
+    # |q . b| reaches a few hundred: scales that bring scores to order 0.1.
+    rscales4 = torch.rand((n_c, m), generator=gen, device=cuda) * 1e-3 + 1e-4
+    sizes = torch.tensor([m, m - 700, 1500, m], dtype=torch.int32, device=cuda)
+    q = _unit(gen, q_n, cuda)
+    clist = torch.arange(n_c, device=cuda, dtype=torch.int32)
+    nact = torch.tensor([n_c], device=cuda, dtype=torch.int32)
+    walk, n_chunks = ib._chunk_walk(sizes, clist, nact, m, 1024)
+    args = (data4, rscales4, sizes, walk, n_chunks, q)
+    bank = ib4.ivf_batch4_bank_cuda(*args, banks=8, keep2=True)
+    plain = ib4.ivf_batch4_bank_reference(*args, banks=8, keep2=True)
+    torch.cuda.synchronize()
+    # Logical row j * S + s is the hi part of packed row j * S/2 + s, row
+    # j * S + S/2 + s its b - 16 hi.
+    b = data4.to(torch.int32).reshape(n_c, m // 1024, 512, D)
+    hi = (b + 8) >> 4
+    logical = torch.cat([hi, b - 16 * hi], dim=2).reshape(n_c * m, D).float()
+
+    def score_of(qi, idx):
+        return (q[qi].bfloat16().float() * logical[idx]).sum(1) * rscales4.reshape(-1)[idx]
+
+    _bank_check(bank, plain, score_of)
+
+
+def test_kmeans_on_the_card_is_a_function_of_its_seed(cuda):
+    """Two fits of the same rows from one seed give bit-equal centroids
+    (the cluster sums run in a fixed order, not through float atomics), and
+    the sums agree with index_add_'s within float32 rounding."""
+    from memex_tpu_torch.index import ivf
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rows = _unit(gen, 1 << 17, cuda)
+    a = ivf.kmeans_fit(rows, 256, iters=4, seed=9)
+    b = ivf.kmeans_fit(rows, 256, iters=4, seed=9)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, ivf.kmeans_fit(rows, 256, iters=4, seed=10))
+    assign = ivf.kmeans_assign(rows, a)
+    v16 = rows.bfloat16().float()
+    fixed = ivf.cluster_sums(v16, assign, 256, block=1 << 15)
+    assert torch.equal(fixed, ivf.cluster_sums(v16, assign, 256, block=1 << 15))
+    atomics = torch.zeros((256, D), device=cuda).index_add_(0, assign, v16)
+    torch.testing.assert_close(fixed, atomics, rtol=1e-5, atol=1e-5)
