@@ -32,8 +32,9 @@ result line) on any failed phase:
      timed at Q in {1, 32, 128} on the float32, int8 and int4 stores;
   4. the IVF tier at memex_tpu's 10M configuration (bench.py: 10,485,760
      clustered rows, int8, n_clusters=4096, nprobe=64, bucket_factor=1.2,
-     built on the device): K5 (keep2 off/on) and K7 against their plain
-     versions on the index's routed unions at Q in {1, 32, 128}, K6 (its
+     built on the device): K5 (keep2 off/on) and K7 (each query's own
+     probes: a shape off K7's path, as IVFIndex.search sends these buckets
+     to K5) against their plain versions at Q in {1, 32, 128}, K6 (its
      int4 mirror, S = 512 and 1024, keep2 off/on) at Q in {1, 2, 31, 32, 33,
      64, 128}; recall@10 of IVFIndex.search against a float32 oracle
      for int8 (K5) and scan_int4 (K6); the store's search_batch timed on
@@ -43,7 +44,8 @@ result line) on any failed phase:
      k-means must give bit-equal centroids), each with a recall check; on
      the float32 ones K5 in the mode each search runs (bf16-rounded rows,
      as the HTTP run's float32 store; exact with keep2), and on the
-     4-cluster one K7 on its own probes, against their plain versions.
+     4-cluster one K7 on its own probes at Q = 1 and 32, against their
+     plain versions (K7's line in the kernels list is this index's).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (from the main-path run of each:
@@ -844,7 +846,8 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
         p_ms = plain_ms(lambda: ft._bank_topk(*isc.ivf_probe_bank_reference(*argsp), IVF_K))
         live = int(index.sizes.long()[probes.long()].sum())
         n_bytes = live * (DIM + 4)
-        print(f"[{label}] phase4 K7 int8 S=256 Q={Q} probed_rows={live} bytes={n_bytes} "
+        print(f"[{label}] phase4 K7 int8 S=256 Q={Q} (off K7's path) probed_rows={live} "
+              f"bytes={n_bytes} "
               f"max_abs_err={err:.3e} slot_idx_diff={n_diff} kernel_ms={ms:.4f} (bank only "
               f"{bank_ms:.4f}) plain_ms={p_ms:.4f} row_read_GBps={gbps(n_bytes, bank_ms)}",
               flush=True)
@@ -1003,7 +1006,10 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
               flush=True)
         check(rec >= bar, f"1M IVF {name}: recall@10 {rec:.4f} < {bar}")
         if kernel == "ivf_probe":
-            err = compare_probe_scan(label, name, index, q1[:n_q])
+            # K7's kernels-line entry is this index's: it is K7's path.
+            own = compare_probe_scan(label, name, index, q1[:n_q])
+            err = max(own.pop("max_abs_err"), stats[kernel]["max_abs_err"])
+            stats[kernel].update(own)
         elif index.dtype == "float32":
             err = compare_float_scan(label, name, index, q1)
         else:
@@ -1048,34 +1054,70 @@ def compare_float_scan(label: str, name: str, index, q) -> float:
     return err
 
 
-def compare_probe_scan(label: str, name: str, index, q, block: int = 8) -> float:
+def compare_probe_scan(label: str, name: str, index, q, block: int = 8) -> dict:
     """K7 on the index's own probes against the plain version, which runs
     `block` queries at a time (a query's plain bank holds its probes' whole
-    buckets in float32). Returns the max abs error."""
+    buckets in float32), at Q = 1 and at the batch of q. Returns the kernels
+    line's entry for K7, whose path this index is: the max abs error, and
+    at the batch of q the top-k wrapper's and the plain version's ms, the
+    bound and the library call (bf16 torch.matmul against the probed union,
+    the same product where every query probes every cluster)."""
     import torch
 
     from memex_tpu_torch.index.ivf import _route
+    from memex_tpu_torch.ops import fused_topk as ft
     from memex_tpu_torch.ops import ivf_scan as isc
+    from memex_tpu_torch.scan_bench import k7_bound
 
     flat, fsc = index.data.view(-1, DIM), index.rscales.view(-1)
-    probes = _route(index.centroids, q, index.nprobe).to(torch.int32)
-    args = (index.data, index.rscales, index.sizes, probes, q)
-    bank = isc.ivf_probe_bank_cuda(*args)
-    parts = [isc.ivf_probe_bank_reference(index.data, index.rscales, index.sizes,
-                                          probes[lo : lo + block], q[lo : lo + block])
-             for lo in range(0, q.shape[0], block)]
-    plain = tuple([torch.cat([p[j][0] for p in parts])] for j in (0, 1))
-    torch.cuda.synchronize()
-    q16 = q.bfloat16().float()
-    err, n_diff = compare_bank(bank, plain, lambda qi, idx: (
-        q16[qi] * flat[idx].float()).sum(1) * fsc[idx])
-    bank_ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(*args))
-    live = int(index.sizes.long()[probes.long()].sum())
-    print(f"[{label}] phase4 1M {name} K7 int8 S=256 Q={q.shape[0]} nprobe={probes.shape[1]} "
-          f"M={index.data.shape[1]} probed_rows={live} max_abs_err={err:.3e} "
-          f"slot_idx_diff={n_diff} bank_ms={bank_ms:.4f} "
-          f"row_read_GBps={gbps(live * (DIM + 4), bank_ms)}", flush=True)
-    return err
+    C, M = index.data.shape[:2]
+    out = {"max_abs_err": 0.0}
+    for n_q in (1, q.shape[0]):
+        qq = q[:n_q].contiguous()
+        probes = _route(index.centroids, qq, index.nprobe).to(torch.int32)
+        args = (index.data, index.rscales, index.sizes, probes, qq)
+
+        def plain_bank():
+            parts = [isc.ivf_probe_bank_reference(index.data, index.rscales, index.sizes,
+                                                  probes[lo : lo + block], qq[lo : lo + block])
+                     for lo in range(0, n_q, block)]
+            return tuple([torch.cat([p[j][0] for p in parts])] for j in (0, 1))
+
+        bank = isc.ivf_probe_bank_cuda(*args)
+        plain = plain_bank()
+        # The work list the kernel builds, against its plain version.
+        T, n_tiles = isc.probe_plan(n_q, probes.shape[1], C, M, 256)[:2]
+        got = isc.probe_work_list(probes, C, T, n_tiles)
+        want = isc.probe_work_list(probes.cpu(), C, T, n_tiles)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"1M {name}: K7's work list differs from its plain version at Q={n_q}")
+        q16 = qq.bfloat16().float()
+        err, n_diff = compare_bank(bank, plain, lambda qi, idx: (
+            q16[qi] * flat[idx].float()).sum(1) * fsc[idx])
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        bank_ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(*args))
+        live = int(index.sizes.long()[probes.long()].sum())
+        print(f"[{label}] phase4 1M {name} K7 int8 S=256 Q={n_q} nprobe={probes.shape[1]} "
+              f"M={M} probed_rows={live} max_abs_err={err:.3e} slot_idx_diff={n_diff} "
+              f"bank_ms={bank_ms:.4f} row_read_GBps={gbps(live * (DIM + 4), bank_ms)}",
+              flush=True)
+        if n_q == 1:
+            continue
+        out["ms"] = cuda_ms(lambda: isc.ivf_probe_topk(*args[:4], qq, IVF_K))
+        out["plain_ms"] = plain_ms(lambda: ft._bank_topk(*plain_bank(), IVF_K))
+        probed = torch.unique(probes.long())
+        sizes = index.sizes.long()
+        union = torch.cat([index.data[c, : int(sizes[c])] for c in probed.tolist()]).bfloat16()
+        qb = qq.bfloat16()
+        out.update(columns(k7_bound(n_q, int(sizes[probed].sum()), live, probes.numel(),
+                                    DIM + 4, 256, C),
+                           cuda_ms(lambda: torch.matmul(qb, union.T))))
+        del union
+        print(f"[{label}] phase4 1M {name} K7 Q={n_q} kernel_ms={out['ms']:.4f} "
+              f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.4f} "
+              f"({out['bound_by']}) library_ms={out['library_ms']:.4f}", flush=True)
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:

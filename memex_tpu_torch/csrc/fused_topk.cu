@@ -13,32 +13,31 @@
 // the earlier column wins, fused_topk.py:64). Columns past the fill level
 // are never read.
 //
-// What bounds it. A lone query is bound by latency: one warp per slot walks
-// N / S rows (scan_kernel's one-query tile, FP32 FMA). At Q >= 2 the bytes
-// are N * D * 4 for float32 rows (1.5 GB at 1M x 384, 0.47 ms at 3.35
-// TB/s) against 2 * Q * N * D flops, 0.10 ms at Q = 128 on bf16 tensor
-// cores, so device memory should bound it. The earlier FP32 body did not
-// get there: each lane read its slice of the whole float32 query tile from
-// shared memory for every row (48 KB a row for 32 queries), every product
-// went through the FP32 pipe (67 TFLOP/s: 1.5 ms at Q = 128), and a row was
-// read once per 32-query tile. So the default modes at Q >= 2 run the
-// tensor-core body (slot_bank.cuh::mma_scan_kernel): a producer warp's bulk
-// copies bring each block step's rows, a 128-query bf16 tile is read with
-// ldmatrix once per 16 rows, mma.sync does the products, and each row is
-// read once per 128 queries. What still holds it back at Q = 128 is the
-// consumers' mma.sync issue and fold (PERF.md, section 6).
+// What bounds it. The bytes are N * D * 4 for float32 rows (1.5 GB at 1M x
+// 384, 0.47 ms at 3.35 TB/s) against 2 * Q * N * D flops, 0.10 ms at Q =
+// 128 on bf16 tensor cores, so device memory should bound it. The earlier
+// FP32 body did not get there: each lane read its slice of the whole
+// float32 query tile from shared memory for every row (48 KB a row for 32
+// queries), every product went through the FP32 pipe (67 TFLOP/s: 1.5 ms
+// at Q = 128), and a row was read once per 32-query tile. So the default
+// modes run the tensor-core body (slot_bank.cuh::mma_scan_kernel): a
+// producer warp's bulk copies bring each block step's rows, a 128-query
+// bf16 tile is read with ldmatrix once per 16 rows, mma.sync does the
+// products, and each row is read once per 128 queries; a lone query takes
+// the 16-query tile (the SIMT one-query walk it replaced was bound by its
+// warps' latency). What still holds it back at Q = 128 is the consumers'
+// mma.sync issue and fold (PERF.md, section 6).
 //
 // Precision: non-exact mode rounds both inputs to bf16 (round to nearest
 // even) and accumulates in f32, as the TPU kernel's bf16 MXU inputs with
-// f32 accumulation (tensor cores at Q >= 2, FP32 FMA for one query);
-// `exact` keeps float32 inputs and FP32 FMA throughout on the SIMT body, so
-// TF32 never enters.
+// f32 accumulation (tensor cores at every Q); `exact` keeps float32 inputs
+// and FP32 FMA throughout on the SIMT body, so TF32 never enters.
 
 #include "slot_bank.cuh"
 
 namespace {
 
-constexpr int kMaxDim = memex::FloatTileOp<memex::F32x4, true>::kMaxDim;  // 384 (MiniLM)
+constexpr int kMaxDim = memex::FloatTileOp::kMaxDim;  // 384 (MiniLM)
 
 }  // namespace
 
@@ -63,13 +62,12 @@ int memex_fused_topk(const float* q, const void* db, int db_bf16,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool k2 = keep2 != 0;
   if (db_bf16)
-    return (int)memex::launch_bf16_scan<memex::Bf16x4, memex::Bf16Rows>(q, db, d, w, a, k2, s);
+    return (int)memex::launch_bf16_scan<memex::Bf16Rows>(q, db, d, w, a, k2, s);
   if (exact) {
-    const memex::FloatTileOp<memex::F32x4, false> op{reinterpret_cast<const float4*>(q), db,
-                                                     d / 4};
+    const memex::FloatTileOp op{reinterpret_cast<const float4*>(q), db, d / 4};
     return (int)memex::launch_scan_flags(op, w, a, k2, s);
   }
-  return (int)memex::launch_bf16_scan<memex::F32x4, memex::F32Rows>(q, db, d, w, a, k2, s);
+  return (int)memex::launch_bf16_scan<memex::F32Rows>(q, db, d, w, a, k2, s);
 }
 
 }  // extern "C"

@@ -28,10 +28,10 @@
 // 128 against 0.11 / 0.98 ms of bf16 tensor-core flops. The earlier body (FP32
 // FMA, 32-query tiles) was bound by its float32 query tile's shared-memory
 // reads, 48 KB a row per tile, and read every row once per 32 queries. The
-// default modes at Q >= 2 therefore run slot_bank.cuh's tensor-core body
+// default modes therefore run slot_bank.cuh's tensor-core body at every Q
 // (up to 128 queries a tile, read as bf16 with ldmatrix once per 16 rows,
 // rows brought by a producer warp's bulk copies of a chunk's contiguous
-// rows); a lone query keeps the SIMT one-query tile.
+// rows; a lone query on the 16-query tile).
 
 #include "slot_bank.cuh"
 
@@ -70,7 +70,7 @@ struct ChunkWalk {
 extern "C" {
 
 // The largest row dim K5 takes; the Python wrapper checks it.
-int memex_ivf_batch_max_dim() { return memex::FloatTileOp<memex::F32x4, true>::kMaxDim; }
+int memex_ivf_batch_max_dim() { return memex::FloatTileOp::kMaxDim; }
 
 // q [n_q, d] f32; data [C, m, d] rows of row_type 0 (float32), 1 (bf16) or
 // 2 (int8); scales [C, m] f32 for int8 rows, else null; sizes [C] int32;
@@ -91,15 +91,14 @@ int memex_ivf_batch(const float* q, const void* data, int row_type, const float*
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool k2 = keep2 != 0;
   if (row_type == 2)
-    return (int)memex::launch_bf16_scan<memex::Int8x4, memex::Int8Rows>(q, data, d, w, a, k2, s);
+    return (int)memex::launch_bf16_scan<memex::Int8Rows>(q, data, d, w, a, k2, s);
   if (row_type == 1)
-    return (int)memex::launch_bf16_scan<memex::Bf16x4, memex::Bf16Rows>(q, data, d, w, a, k2, s);
+    return (int)memex::launch_bf16_scan<memex::Bf16Rows>(q, data, d, w, a, k2, s);
   if (exact) {
-    const memex::FloatTileOp<memex::F32x4, false> op{reinterpret_cast<const float4*>(q), data,
-                                                     d / 4};
+    const memex::FloatTileOp op{reinterpret_cast<const float4*>(q), data, d / 4};
     return (int)memex::launch_scan_flags(op, w, a, k2, s);
   }
-  return (int)memex::launch_bf16_scan<memex::F32x4, memex::F32Rows>(q, data, d, w, a, k2, s);
+  return (int)memex::launch_bf16_scan<memex::F32Rows>(q, data, d, w, a, k2, s);
 }
 
 }  // extern "C"

@@ -8,9 +8,11 @@
 // order -- s, s+S, s+2S, ... for the flat scans, row s of each chunk of the
 // probed clusters for the IVF scans -- so its fold keeps the TPU's tie rule
 // (strict '>': the earlier column wins) without any merge across blocks.
-// Two bodies score the rows:
-//   - scan_kernel (SIMT, FP32 FMA; tiles of 32 queries, or one alone; the
-//     exact modes, K7, and K1's and K5's lone query):
+// (K7 alone splits a query's walk into contiguous pieces, each folded by
+// one warp, and merges them in walk order: exact for its single-winner
+// fold, ivf_scan.cu.) Two bodies score the rows:
+//   - scan_kernel (SIMT, FP32 FMA; tiles of 32 queries, or one alone; only
+//     the exact modes of K1 and K5, float32 throughout):
 //     lane l scores its slice of the row against every query of the tile;
 //     the transpose-reduce then leaves lane l holding the whole score of
 //     query l, which lane l folds into the (query l, slot) pair it owns;
@@ -26,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace memex {
 
@@ -305,60 +309,28 @@ cudaError_t launch_scan_flags(const Op& op, const Walk& walk, const ScanArgs& a,
                     : launch_scan_tile<Op, Walk, kQT>(op, walk, a, keep2, stream);
 }
 
-// Sign-extended byte k (0..3) of a 32-bit word, as a float (exact).
-__device__ __forceinline__ float byte_f32(uint32_t w, int k) {
-  return static_cast<float>(static_cast<int>(w << (24 - 8 * k)) >> 24);
-}
-
 // x rounded to bf16 (to nearest even) and back: the TPU's bf16 MXU input.
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Four row elements loaded as one unit, and their float32 values. kBf16Exact:
-// the values are already bf16 numbers (int8 codes are integers below 2^8).
-struct Int8x4 {
-  using Raw = uint32_t;
-  static constexpr bool kBf16Exact = true;
-  __device__ __forceinline__ static float4 widen(Raw w) {
-    return make_float4(byte_f32(w, 0), byte_f32(w, 1), byte_f32(w, 2), byte_f32(w, 3));
-  }
-};
-struct Bf16x4 {
-  using Raw = uint2;
-  static constexpr bool kBf16Exact = true;
-  __device__ __forceinline__ static float4 widen(Raw w) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-};
-struct F32x4 {
-  using Raw = float4;
-  static constexpr bool kBf16Exact = false;
-  __device__ __forceinline__ static float4 widen(Raw w) { return w; }
-};
-
-// Rows of d elements (d / 4 units of `Unit`) against float32 queries held
-// as a float4 tile in shared memory, FP32 FMA. kRound rounds both inputs to
-// bf16 (the queries when staged, float32 rows when scored): the TPU
-// kernels' bf16 MXU inputs with f32 accumulation. Without it (float32 rows,
-// `exact`) every operation is float32. A lane holds units lane, lane + 32,
-// lane + 64 of a row, so d <= kMaxDim.
-template <class Unit, bool kRound>
+// float32 rows of d elements (d / 4 float4 units) against float32 queries
+// held as a float4 tile in shared memory, FP32 FMA: every operation is
+// float32 (the exact modes of K1 and K5, which must never meet TF32). A
+// lane holds units lane, lane + 32, lane + 64 of a row, so d <= kMaxDim.
 struct FloatTileOp {
   static constexpr int kUnits = 3;                 // units per lane
   static constexpr int kTileUnits = 32 * kUnits;   // units per query in a tile (zero past d / 4)
   static constexpr int kMaxDim = 4 * kTileUnits;   // 384
   struct Row {
-    typename Unit::Raw u[kUnits];
+    float4 u[kUnits];
   };
   using Acc = float;
   const float4* q;  // [n_q, upr] float32 queries, 4 per unit of a row
-  const void* db;   // [n_rows, d] rows
+  const void* db;   // [n_rows, d] float32 rows
   int upr;          // units per row: d / 4
 
-  __host__ __device__ int row_bytes() const { return static_cast<int>(sizeof(typename Unit::Raw)) * upr; }
+  __host__ __device__ int row_bytes() const { return static_cast<int>(sizeof(float4)) * upr; }
   __host__ __device__ int tile_bytes(int kT) const { return 16 * kT * kTileUnits; }
 
   template <int kT>
@@ -367,26 +339,17 @@ struct FloatTileOp {
     for (int t = threadIdx.x; t < kT * kTileUnits; t += blockDim.x) {
       const int qq = t / kTileUnits;
       const int i = t - qq * kTileUnits;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (qq < nq && i < upr) {
-        v = q[(long long)(q0 + qq) * upr + i];
-        if (kRound) {
-          v.x = round_bf16(v.x);
-          v.y = round_bf16(v.y);
-          v.z = round_bf16(v.z);
-          v.w = round_bf16(v.w);
-        }
-      }
-      qs[t] = v;
+      qs[t] = qq < nq && i < upr ? q[(long long)(q0 + qq) * upr + i]
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 
   __device__ __forceinline__ void read(const char* st, int lane, Row& r) const {
-    const typename Unit::Raw* src = reinterpret_cast<const typename Unit::Raw*>(st);
+    const float4* src = reinterpret_cast<const float4*>(st);
 #pragma unroll
     for (int j = 0; j < kUnits; ++j) {
       const int k = lane + 32 * j;
-      r.u[j] = k < upr ? src[k] : typename Unit::Raw{};
+      r.u[j] = k < upr ? src[k] : float4{};
     }
   }
 
@@ -394,17 +357,7 @@ struct FloatTileOp {
   __device__ __forceinline__ void partial(const Row& r, const char* tile, int lane,
                                           float (&part)[kT]) const {
     const float4* qs = reinterpret_cast<const float4*>(tile) + lane;
-    float4 x[kUnits];
-#pragma unroll
-    for (int j = 0; j < kUnits; ++j) {
-      x[j] = Unit::widen(r.u[j]);
-      if (kRound && !Unit::kBf16Exact) {
-        x[j].x = round_bf16(x[j].x);
-        x[j].y = round_bf16(x[j].y);
-        x[j].z = round_bf16(x[j].z);
-        x[j].w = round_bf16(x[j].w);
-      }
-    }
+    const float4 (&x)[kUnits] = r.u;
 #pragma unroll
     for (int qq = 0; qq < kT; ++qq) {
       float acc = 0.f;
@@ -424,18 +377,19 @@ struct FloatTileOp {
 
 // -- The tensor-core body -------------------------------------------------------
 //
-// K1 on float32 and bf16 rows and K5 on int8, bf16 and float32 rows at two
-// queries or more in the non-exact modes (bf16 inputs, f32 accumulate:
-// MmaTileOp below); at every batch size K3 with K5's int8 product on the
-// flat walk, K2 on int8 rows against int8 queries (s8 x s8 -> s32,
-// fused_topk_int8.cu), K4 on packed int4 rows in both its modes
-// (fused_topk_int4.cu) and K6 on row-pair packed int4 rows, two folds a step
-// (ivf_batch4.cu). The SIMT body above reads its query tile from
+// At every batch size: K1 on float32 and bf16 rows, K5 on int8, bf16 and
+// float32 rows and K7 on those three (gathered query tiles, below), all in
+// the non-exact modes (bf16 inputs, f32 accumulate: MmaTileOp below); K3
+// with K5's int8 product on the flat walk, K2 on int8 rows against int8
+// queries (s8 x s8 -> s32, fused_topk_int8.cu), K4 on packed int4 rows in
+// both its modes (fused_topk_int4.cu) and K6 on row-pair packed int4 rows,
+// two folds a step (ivf_batch4.cu). The SIMT body above reads its query tile from
 // shared memory once per row (12-48 KB a row for 32 queries at D = 384) and
 // issues every product on the FP32 or integer pipe; this one
 //   - stages the block's query tile once, up to 128 queries, in the
 //     product's input type, so a row leaves device memory once per batch of
-//     128;
+//     128 (a gathered walk's tile is any set of the batch's queries, and
+//     their banks go where the walk says: GatheredWalk below);
 //   - gives the block's kW slots one producer warp: a block step, the rows
 //     of the kW slots at one step of the walk, is kW contiguous rows of the
 //     table (flat: columns u * S + s0 ...; K5, K6: rows of one chunk), so one
@@ -603,6 +557,10 @@ __device__ __forceinline__ void stage_s8_tile(char* tile, int stride, const char
 //   op.db, op.row_bytes()       the rows (a multiple of 16 bytes each)
 //   op.tile_bytes(tq)           of the staged tile of tq queries
 //   op.stage_tile(tile, q0, nq, tq)            all threads of the block
+//   op.stage_rows(tile, row_of, tq)            the same for a gathered walk
+//                                              (MmaTileOp only): tile query
+//                                              qq is batch row row_of(qq),
+//                                              or zeros where that is -1
 //   op.products<kNT, kMT>(acc, ar, tile, qbase, lane)
 //       kMT m-tiles a group: a warp scores 16 * kMT steps at a time, and a B
 //       fragment read serves them all;
@@ -632,17 +590,39 @@ struct MmaTileOp {
   __host__ __device__ int tile_stride() const { return 2 * d + 16; }
   __host__ __device__ int tile_bytes(int tq) const { return tq * tile_stride(); }
 
-  // The query tile as bf16, zero rows past nq.
-  __device__ __forceinline__ void stage_tile(char* tile, int q0, int nq, int tq) const {
-    const int hd = d / 2;
+  // The query tile as bf16: tile query qq < tq is batch row row_of(qq), or
+  // zeros where that is -1. A thread issues kBatch float4 loads before it
+  // converts and stores them, so a block waits for ~tq * d / (4 * threads *
+  // kBatch) loads in turn, not one per element: a tile of 128 queries is
+  // 12,288 float4s, 43 a thread (K7 stages one per short item).
+  template <class RowOf>
+  __device__ __forceinline__ void stage_rows(char* tile, RowOf&& row_of, int tq) const {
+    constexpr int kBatch = 8;
+    const int qd = d / 4;  // float4 units a query
     const int tstride = tile_stride();
-    for (int t = threadIdx.x; t < tq * hd; t += blockDim.x) {
-      const int qq = t / hd;
-      const int p = t - qq * hd;
-      float2 v = make_float2(0.f, 0.f);
-      if (qq < nq) v = reinterpret_cast<const float2*>(q)[(long long)(q0 + qq) * hd + p];
-      *reinterpret_cast<uint32_t*>(tile + qq * tstride + 4 * p) = bf16x2(v.x, v.y);
+    const int n = tq * qd;
+    const float4* const q4 = reinterpret_cast<const float4*>(q);
+    for (int t0 = threadIdx.x; t0 < n; t0 += kBatch * blockDim.x) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int t = t0 + k * blockDim.x;
+        const int qq = t / qd;
+        const long long row = t < n ? row_of(qq) : -1;
+        v[k] = row >= 0 ? q4[row * qd + (t - qq * qd)] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int t = t0 + k * blockDim.x;
+        const int qq = t / qd;
+        if (t < n)
+          *reinterpret_cast<uint2*>(tile + qq * tstride + 8 * (t - qq * qd)) =
+              make_uint2(bf16x2(v[k].x, v[k].y), bf16x2(v[k].z, v[k].w));
+      }
     }
+  }
+  __device__ __forceinline__ void stage_tile(char* tile, int q0, int nq, int tq) const {
+    stage_rows(tile, [q0, nq](int qq) -> long long { return qq < nq ? q0 + qq : -1; }, tq);
   }
 
   // A is converted to bf16 pairs (int8 codes and bf16 values exactly,
@@ -685,6 +665,32 @@ __host__ __device__ constexpr int mma_ring(int tq) {
   const int ring = (kMaxBlockSmem - fixed) / stage;
   return ring > kMT * kMaxRing ? kMT * kMaxRing : ring;
 }
+
+// A gathered walk (K7's probe tiles, ivf_scan.cu): block row y of the grid
+// is item y of a work list, whose query tile is any set of the batch's
+// queries and whose banks are stored at rows the walk names. Every other
+// walk is the identity: block row y takes queries y * kMmaTileQ on and
+// stores their banks at their own rows. A gathered walk gives
+//   Walk::Item, walk.item(y)             what block row y walks, read once
+//   walk.n_items                         block rows of the grid
+//   walk.queries(it)                     its queries (0: past the list; the
+//                                        block exits)
+//   walk.query(it, qq)                   the batch row of tile query qq
+//   walk.out_row(it, qq)                 the bank row its bank is stored at
+//   walk.steps(s0, it), walk.block_step(s0, it, u, w)  as any walk
+//   walk.sweep                           slot groups (kW slots each) a block
+//                                        walks in turn: 1, or more where an
+//                                        item's walk is short, so that a
+//                                        block's set-up (its barriers and
+//                                        tile) serves more rows. The block
+//                                        walks each slot group's steps in
+//                                        turn, and a consumer stores its
+//                                        banks where the next group starts,
+//                                        mid-fold if need be.
+template <class W, class = void>
+struct GatheredWalk : std::false_type {};
+template <class W>
+struct GatheredWalk<W, std::void_t<typename W::Item>> : std::true_type {};
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
   asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
@@ -747,14 +753,27 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   static_assert(kRing > kSteps, "the ring holds a group and more");
   constexpr int kPasses = (kNT * 8 + kFoldQ - 1) / kFoldQ;
   constexpr int kWarpSmem = warp_smem(kF);
+  constexpr bool kGathered = GatheredWalk<Walk>::value;
   extern __shared__ uint4 smem_raw[];
   char* const tile = reinterpret_cast<char*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int s0 = blockIdx.x * kW;
   const int gap = a.n_slots / kF;  // from a slot and its column to its next fold's
-  const int q0 = blockIdx.y * kMmaTileQ;
-  const int nq = min(kTileQ, a.n_q - q0);
+  // The block's queries: q0 = blockIdx.y * kMmaTileQ on, or a gathered
+  // walk's item.
+  const auto it = [&] {
+    if constexpr (kGathered)
+      return walk.item(blockIdx.y);
+    else
+      return static_cast<int>(blockIdx.y) * kMmaTileQ;
+  }();
+  int nq;
+  if constexpr (kGathered) {
+    nq = walk.queries(it);
+    if (nq <= 0) return;  // past the work list: the whole block leaves
+  } else {
+    nq = min(kTileQ, a.n_q - it);
+  }
   const int row_bytes = op.row_bytes();
   const int sbytes = kW * row_bytes + Op::kTail;
   char* const ring = tile + op.tile_bytes(kTileQ);
@@ -762,8 +781,15 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   const unsigned full = smem_addr(warps_smem + kW * kG * kWarpSmem);  // [kRing]: a stage landed
   const unsigned empty = full + 8 * kRing;                            // [kRing]: a stage was read
   const char* const rows = static_cast<const char*>(op.db);
-  // The block's steps: its first slot's (columns are int32, so steps are).
-  const int nb = static_cast<int>(walk.steps(s0, q0));
+  // The block's slot groups of kW slots from s0 on (one but in a gathered
+  // walk's sweep) and its steps: nbg, its first slot's (columns are int32,
+  // so steps are), for each slot group in turn (a later group's last step
+  // may be masked).
+  int sweep = 1;
+  if constexpr (kGathered) sweep = walk.sweep;
+  const int s0 = blockIdx.x * kW * sweep;
+  const int nbg = static_cast<int>(walk.steps(s0, it));
+  const int nb = nbg * sweep;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRing; ++s) {
@@ -772,7 +798,17 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  op.stage_tile(tile, q0, nq, kTileQ);
+  if constexpr (kGathered) {
+    // The tile's batch rows, looked up once into the score tiles' memory
+    // (unused until the walk starts), then the tile.
+    int* const rows_of = reinterpret_cast<int*>(warps_smem);
+    for (int qq = threadIdx.x; qq < kTileQ; qq += blockDim.x)
+      rows_of[qq] = qq < nq ? walk.query(it, qq) : -1;
+    __syncthreads();
+    op.stage_rows(tile, [rows_of](int qq) -> long long { return rows_of[qq]; }, kTileQ);
+  } else {
+    op.stage_tile(tile, it, nq, kTileQ);
+  }
   __syncthreads();
 
   if (warp == kW * kG) {
@@ -788,7 +824,16 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     };
     auto fetch = [&](int u) {
       Fetched f;
-      f.at = lane < kSteps && u < nb ? walk.block_step(s0, q0, u, kW) : BlockStep{0, 0, 0, 0};
+      f.at = BlockStep{0, 0, 0, 0};
+      if (lane < kSteps && u < nb) {
+        if constexpr (kGathered) {
+          // Step u % nbg of slot group u / nbg, masked past that group's own.
+          const int g = u / nbg, gu = u - g * nbg, gs0 = s0 + g * kW;
+          if (gu < walk.steps(gs0, it)) f.at = walk.block_step(gs0, it, gu, kW);
+        } else {
+          f.at = walk.block_step(s0, it, u, kW);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
         f.scale[i] = a.scales && i < f.at.live ? a.scales[(long long)f.at.col0 + i] : 1.f;
@@ -830,10 +875,10 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   }
 
   // A consumer: warp g * kW + w owns slot s0 + w (and, with two folds, slot
-  // s0 + w + gap) for the queries of group g and walks the block's steps.
+  // s0 + w + gap) for the queries of group g and walks the block's steps;
+  // in a sweep, slot s0 + j * kW + w for slot group j in turn.
   const int w = warp % kW;
   const int qbase = warp / kW * (kNT * 8);
-  const int slot = s0 + w;
   float* const scores = reinterpret_cast<float*>(warps_smem + warp * kWarpSmem);
   StepTail* const tails = reinterpret_cast<StepTail*>(scores + kMmaSteps * kScoreStride);
   const int r = lane >> 2;  // the A / C fragment's step of an m-tile (and step + 8)
@@ -843,6 +888,21 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   // default member initialisers (its banks started at 0, not -1e30).
   SlotBank<kKeep2> bank[kF * kPasses];
   Acc acc[kF * kMT][kNT][4];
+  // Bank (f, p) of slot group j to the outputs, then a fresh one in its place.
+  auto store = [&](int f, int p, int j) {
+    const int qq = qbase + kFoldQ * p + lane;
+    if (kFoldQ * p + lane < kNT * 8 && qq < nq) {
+      long long row;
+      if constexpr (kGathered)
+        row = walk.out_row(it, qq);
+      else
+        row = it + qq;
+      bank[f * kPasses + p].store(a.v, a.i, a.v2, a.i2,
+                                  row * a.n_slots + s0 + j * kW + w + f * gap);
+    }
+    bank[f * kPasses + p] = SlotBank<kKeep2>{};
+  };
+  int stored = 0;  // slot groups stored
 
   for (int u0 = 0; u0 < nb; u0 += kSteps) {
     // Lane l waits for step u0 + l and takes this slot's part of its tail.
@@ -883,11 +943,26 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     }
     __syncwarp();  // the group's rows and tails are read: release its stages
     if (has_step) mbar_arrive(empty + 8 * ((u0 + lane) % kRing));
-    if (!any) continue;
+    // In a sweep: bit st of `ends` marks step u0 + st as a slot group's
+    // first, past the block's first: the banks go out before it folds.
+    unsigned ends = 0u;
+    if (sweep > 1) {
+      for (int b = (u0 + nbg - 1) / nbg * nbg; b < u0 + kSteps && b < nb; b += nbg)
+        if (b > 0 && b >= u0) ends |= 1u << (b - u0);
+      if (!any) {  // no fold: only the stores
+        for (int e = __popc(ends); e > 0; --e, ++stored)
+#pragma unroll
+          for (int f = 0; f < kF; ++f)
+#pragma unroll
+            for (int p = 0; p < kPasses; ++p) store(f, p, stored);
+        ends = 0u;
+      }
+    }
     // The m-tiles' scores, fold by fold, go through the one 16-step score
     // tile in turn, so each slot's fold stays in step order.
 #pragma unroll
     for (int t = 0; t < kMT; ++t) {
+      if (!any) break;
 #pragma unroll
       for (int f = 0; f < kF; ++f) {
         const StepTail* const tt = tails + f * kGroupSteps + kMmaSteps * t;
@@ -909,23 +984,29 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
             *reinterpret_cast<float2*>(scores + (r + 8) * kScoreStride + 8 * jj + 2 * c) = hi;
           }
           __syncwarp();
+          if (ends == 0u) {  // every group but a sweep's few: the fold alone
 #pragma unroll
-          for (int st = 0; st < kMmaSteps; ++st)
-            bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
+            for (int st = 0; st < kMmaSteps; ++st)
+              bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
+          } else {
+#pragma unroll
+            for (int st = 0; st < kMmaSteps; ++st) {
+              const int k = kMmaSteps * t + st;  // the step in the group
+              if (ends >> k & 1u) store(f, p, stored + __popc(ends & ((1u << k) - 1u)));
+              bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
+            }
+          }
           __syncwarp();
         }
       }
     }
+    stored += __popc(ends);
   }
+  for (; stored < sweep; ++stored)
 #pragma unroll
-  for (int f = 0; f < kF; ++f)
+    for (int f = 0; f < kF; ++f)
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int qq = qbase + kFoldQ * p + lane;
-      if (kFoldQ * p + lane < kNT * 8 && qq < nq)
-        bank[f * kPasses + p].store(a.v, a.i, a.v2, a.i2,
-                                    (long long)(q0 + qq) * a.n_slots + slot + f * gap);
-    }
+      for (int p = 0; p < kPasses; ++p) store(f, p, stored);
 }
 
 template <class Op, int kW, int kNT, int kG, int kMT, class Walk, bool kKeep2, bool kAlive>
@@ -939,7 +1020,12 @@ cudaError_t launch_mma_scan(const Op& op, const Walk& walk, const ScanArgs& a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.n_slots / (kW * Op::kFolds), (a.n_q + kMmaTileQ - 1) / kMmaTileQ);
+  int cols = a.n_slots / (kW * Op::kFolds), rows = (a.n_q + kMmaTileQ - 1) / kMmaTileQ;
+  if constexpr (GatheredWalk<Walk>::value) {
+    cols /= walk.sweep;
+    rows = walk.n_items;
+  }
+  const dim3 grid(cols, rows);
   kernel<<<grid, (kW * kG + 1) * 32, smem, stream>>>(op, walk, a);
   return cudaGetLastError();
 }
@@ -959,19 +1045,15 @@ cudaError_t launch_mma_flags(const Op& op, const Walk& walk, const ScanArgs& a, 
                : launch_mma_scan<Op, kW, kNT, kG, kMT, Walk, false, false>(op, walk, a, stream);
 }
 
-// The non-exact float scan of a walk (bf16 inputs, f32 accumulate): one
-// query alone on scan_kernel's one-query tile (latency-bound: a single query
-// fills no mma), more on the tensor-core body with the fewest n-tiles that
-// hold the batch (up to 128 queries a tile). `Unit` and `Rows` name the same
-// row type for the two bodies. Needs d % 16 == 0, d <= 384, n_slots % 8 ==
-// 0 and 16-byte aligned rows; a Walk for the body also gives block_step.
-template <class Unit, class Rows, class Walk>
+// The non-exact float scan of a walk (bf16 inputs, f32 accumulate) on the
+// tensor-core body, with the fewest n-tiles that hold the batch (up to 128
+// queries a tile; a lone query takes the 16-query tile: on the H100 it beat
+// the SIMT one-query walk, K1 bf16 rows 0.53 -> 0.31 ms at 1M x 384, PERF.md
+// section 6). Needs d % 16 == 0, d <= 384, n_slots % 8 == 0 and 16-byte
+// aligned rows.
+template <class Rows, class Walk>
 cudaError_t launch_bf16_scan(const float* q, const void* db, int d, const Walk& walk,
                              const ScanArgs& a, bool keep2, cudaStream_t stream) {
-  if (a.n_q == 1) {
-    const FloatTileOp<Unit, true> op{reinterpret_cast<const float4*>(q), db, d / 4};
-    return launch_scan_tile<FloatTileOp<Unit, true>, Walk, 1>(op, walk, a, keep2, stream);
-  }
   using Op = MmaTileOp<Rows>;
   constexpr int kW = Rows::kWarps;
   const Op op{q, db, d};

@@ -164,8 +164,17 @@ def library() -> ctypes.CDLL:
             lib.memex_ivf_probe.argtypes = [
                 c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,  # q, data, row_type, scales
                 c.c_void_p, c.c_void_p,  # sizes, probes
+                c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # C, tile_q, n_tiles, ranges, blocks_x
+                c.c_void_p, c.c_void_p, c.c_void_p,  # scratch, part_v, part_i
                 c.c_void_p, c.c_void_p,  # v, i
                 c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # n_q, nprobe, d, n_slots, m
+                c.c_void_p,  # stream
+            ]
+            lib.memex_ivf_probe_list.restype = c.c_int
+            lib.memex_ivf_probe_list.argtypes = [
+                c.c_void_p, c.c_int, c.c_int,  # probes, n_pairs, n_clusters
+                c.c_int, c.c_int,  # tile_q, n_tiles
+                c.c_void_p, c.c_void_p, c.c_void_p,  # scratch, pairs, tiles
                 c.c_void_p,  # stream
             ]
             for name in ("memex_fused_topk_max_dim", "memex_fused_topk_int8_max_dim",

@@ -25,17 +25,24 @@ warm-up calls):
     `route_union` gives random unit queries at nprobe = 64;
   - K6, `ivf_batch4_bank_cuda`, on the int4 row-pair mirror of that table
     (`pack_int4_buckets`, banks = 8), over the same unions;
-  - K7, `ivf_probe_bank_cuda`, on that table with each query's own 64
-    probes (S = 256);
+  - K7, `ivf_probe_bank_cuda`, where the port runs it: an int8 table of 4
+    clusters x 315,392 rows (the 1M-row, 4-cluster index's bucket; sizes
+    summing to 1,048,576), each query's own 4 probes in routing order
+    (S = 256); and on the 10M table with each query's own 64 probes, a
+    shape off K7's path (IVFIndex._scan sends M = 3,072 to K5), kept as a
+    yardstick across checkouts;
 at Q = 1, 32 and 128 (or --queries). Beside each time it prints the bound (the larger of
 the bytes the function must move at 3.35 TB/s and its products at the
 card's tensor-core peak for the product's type, live rows only) and one
 PyTorch call of the same function's product on operands laid out
 beforehand (library_ms): `torch.matmul` of bf16 operands for K1, K3, K5
-and K6 (K6: against the union's unpacked int4 codes), `torch._int_mm` of
-the int8 queries and codes for K2 and K4 (null where its shape rules refuse
-the batch), `torch.bmm` of each query against its probes' whole buckets
-for K7. `--kernels KM` adds the sums of one k-means iteration at the 10M
+and K6 (K6: against the union's unpacked int4 codes) and for K7 on 4
+clusters (against the probed union, which every query probes whole),
+`torch._int_mm` of the int8 queries and codes for K2 and K4 (null where its
+shape rules refuse the batch), `torch.bmm` of each query against its
+probes' whole buckets for K7 on the 10M table. K7's partial banks (Q *
+nprobe * R * S * 8 bytes, written and read once) are counted apart, in
+bound_with_partials_ms: they are not the function's inputs or outputs. `--kernels KM` adds the sums of one k-means iteration at the 10M
 build's shape (262,144 x 384 sample rows, 4,096 clusters): the fixed-order
 `cluster_sums` beside `index_add_`, and whether two runs of each agree bit
 for bit. One JSON line per measurement, with the card's
@@ -61,6 +68,10 @@ PEAK_OPS_PER_S = {           # dense, NVIDIA's data sheet, at 700 W
 N_ROWS, DIM, COUNT_GAP = 1 << 20, 384, 12345
 IVF_C, IVF_M, IVF_NPROBE, IVF_S = 4096, 3072, 64, 1024
 IVF_PROBE_S = 256  # K7's bank width
+# K7's own shape: the smoke's 1M-row, 4-cluster index (bucket_factor 1.2).
+FEW_C, FEW_M = 4, 315392
+FEW_SIZES = (315392, 262144, 250000, 221040)  # 1,048,576 rows
+OFF_PATH = "10M, off K7's path: IVFIndex._scan sends M = 3,072 to K5"
 ALL_KERNELS = "K1,K2,K3,K4,K5,K6,K7"
 
 
@@ -147,13 +158,78 @@ def k6_bound(q_n: int, live_packed: int, live: int, n_chunks: int, n_slots: int,
 
 
 def k7_bound(q_n: int, rows_read: int, rows_scored: int, n_probes: int, row_bytes: int,
-             n_slots: int, n_clusters: int) -> tuple[float, str]:
+             n_slots: int, n_clusters: int, extra_bytes: int = 0) -> tuple[float, str]:
     """K7: each probed bucket's live rows (and scales) read once, the probes
     and the bucket sizes, the queries, the bank; each query scores its own
-    probes' rows, 2 * D operations each."""
+    probes' rows, 2 * D operations each. `extra_bytes`: what a design moves
+    besides (K7's partial banks)."""
     n_bytes = (rows_read * row_bytes + n_probes * 4 + n_clusters * 4 + q_n * DIM * 4
-               + q_n * n_slots * 8)
+               + q_n * n_slots * 8 + extra_bytes)
     return bound(n_bytes, 2.0 * rows_scored * DIM, "bf16")
+
+
+def k7_partial_bytes(isc, q_n: int, nprobe: int, n_clusters: int, m: int) -> int:
+    """Bytes of K7's partial banks, written once and read once by its
+    merge; 0 for a checkout whose K7 has none."""
+    if not hasattr(isc, "probe_plan"):
+        return 0
+    ranges = isc.probe_plan(q_n, nprobe, n_clusters, m, IVF_PROBE_S)[2]
+    return 2 * q_n * nprobe * ranges * IVF_PROBE_S * 8
+
+
+def k7_emit(emit, isc, q_n, q, data, rscales, sizes, probes, lib_ms, shape):
+    """Times K7 on these probes and emits it with its bounds."""
+    import torch
+
+    C, M, _ = data.shape
+    ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(data, rscales, sizes, probes, q))
+    scored = int(sizes.long()[probes.long()].sum())
+    read = int(sizes.long()[torch.unique(probes.long())].sum())
+    nprobe = probes.shape[1]
+    args = (q_n, read, scored, probes.numel(), DIM + 4, IVF_PROBE_S, C)
+    b_ms, b_by = k7_bound(*args)
+    partial = k7_partial_bytes(isc, q_n, nprobe, C, M)
+    emit(kernel="K7", rows="int8", shape=shape, Q=q_n, nprobe=nprobe, rows_read=read,
+         rows_scored=scored, ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+         partial_bank_bytes=partial, bound_with_partials_ms=k7_bound(*args, partial)[0],
+         **k7_parts(isc, q_n, q, data, rscales, sizes, probes))
+
+
+def k7_parts(isc, q_n, q, data, rscales, sizes, probes) -> dict:
+    """For a checkout whose K7 runs a work list: its plan, the list's build
+    alone (list_ms) and the whole launch on outputs and scratch made
+    beforehand (kernel_ms: the list, the scan and the merge)."""
+    import torch
+
+    from memex_tpu_torch import kernels
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    if not hasattr(isc, "probe_work_list"):
+        return {}
+    C, M, _ = data.shape
+    nprobe = probes.shape[1]
+    T, n_tiles, R, H = isc.probe_plan(q_n, nprobe, C, M, IVF_PROBE_S)
+    list_ms = cuda_ms(lambda: isc.probe_work_list(probes, C, T, n_tiles))
+    tiles = isc.probe_work_list(probes, C, T, n_tiles)[1]
+    scratch = torch.empty(3 * C + q_n * nprobe + 3 * n_tiles, dtype=torch.int32,
+                          device=data.device)
+    part_v = torch.empty((q_n * nprobe * R, IVF_PROBE_S), device=data.device)
+    part_i = torch.empty((q_n * nprobe * R, IVF_PROBE_S), dtype=torch.int32, device=data.device)
+    vals, idx = ft._bank_outputs(data, q_n, IVF_PROBE_S, False)
+    lib = kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel_only():
+        err = lib.memex_ivf_probe(
+            q.data_ptr(), data.data_ptr(), 2, rscales.data_ptr(), sizes.data_ptr(),
+            probes.data_ptr(), C, T, n_tiles, R, H, scratch.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), vals[0].data_ptr(), idx[0].data_ptr(), q_n, nprobe, DIM,
+            IVF_PROBE_S, M, stream)
+        if err != 0:
+            raise RuntimeError(f"ivf_probe launch failed: cudaError {err}")
+
+    return dict(tile_q=T, ranges=R, blocks_x=H, tiles_bound=n_tiles,
+                tiles=int((tiles[2] > 0).sum()), list_ms=list_ms, kernel_ms=cuda_ms(kernel_only))
 
 
 def int_mm_ms(a, b_t, what: str) -> float | None:
@@ -187,6 +263,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default=ALL_KERNELS)
     ap.add_argument("--queries", default="1,32,128", help="batch sizes, comma-separated")
+    ap.add_argument("--k7-blocks", type=int, default=None,
+                    help="K7's TARGET_BLOCKS (ops/ivf_scan.py), to try another cut of the "
+                         "buckets into ranges")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -343,23 +422,38 @@ def main(argv: list[str] | None = None) -> int:
     if "K7" not in which:
         return 0
 
-    # K7: every query walks its own probes' whole buckets.
+    # K7 on the 10M table, each query with its own 64 probes.
     from memex_tpu_torch.index.ivf import _route
     from memex_tpu_torch.ops import ivf_scan as isc
 
+    if args.k7_blocks is not None:
+        isc.TARGET_BLOCKS = args.k7_blocks
+
     for q_n, q in queries.items():
         probes = _route(centroids, q, IVF_NPROBE).to(torch.int32)
-        ms = cuda_ms(lambda: isc.ivf_probe_bank_cuda(data, rscales, sizes, probes, q))
-        scored = int(sizes.long()[probes.long()].sum())
-        read = int(sizes.long()[torch.unique(probes.long())].sum())
         buckets = data[probes.long()].reshape(q_n, -1, DIM).to(torch.bfloat16)
         qb = q.to(torch.bfloat16)[:, None, :]
         lib_ms = cuda_ms(lambda: torch.bmm(qb, buckets.transpose(1, 2)))
         del buckets
         torch.cuda.empty_cache()
-        b_ms, b_by = k7_bound(q_n, read, scored, probes.numel(), DIM + 4, IVF_PROBE_S, IVF_C)
-        emit(kernel="K7", rows="int8", Q=q_n, nprobe=IVF_NPROBE, rows_read=read,
-             rows_scored=scored, ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        k7_emit(emit, isc, q_n, q, data, rscales, sizes, probes, lib_ms, OFF_PATH)
+    del data, rscales, sizes, flat
+    torch.cuda.empty_cache()
+
+    # K7 where the port runs it: 4 clusters, every query probing all 4.
+    data = torch.randint(-127, 128, (FEW_C, FEW_M, DIM), generator=gen, device=dev,
+                         dtype=torch.int8)
+    rscales = torch.rand((FEW_C, FEW_M), generator=gen, device=dev) * 1e-2 + 1e-3
+    sizes = torch.tensor(FEW_SIZES, dtype=torch.int32, device=dev)
+    c = torch.randn((FEW_C, DIM), generator=gen, device=dev)
+    centroids = c / c.norm(dim=1, keepdim=True)
+    union16 = torch.cat([data[i, :n] for i, n in enumerate(FEW_SIZES)]).to(torch.bfloat16)
+    for q_n, q in queries.items():
+        probes = _route(centroids, q, FEW_C).to(torch.int32)
+        q16 = q.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.matmul(q16, union16.T))
+        k7_emit(emit, isc, q_n, q, data, rscales, sizes, probes, lib_ms,
+                f"{FEW_C} clusters x {FEW_M:,} (K7's path)")
     return 0
 
 

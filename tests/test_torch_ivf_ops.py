@@ -233,3 +233,136 @@ def test_k7_plain_matches_jax(table, dtype):
                             jnp.asarray(probes), jnp.asarray(q), 128, interpret=True)
     got = ts.ivf_probe_topk(td, _t(rsc), _t(table["sizes"]), _t(probes), _t(q), 128)
     _check_hits(*ref, *got, _score_fn(table, dtype, False, q))
+
+
+# -- K7's probe-shared walk: the work list, the split folds and their merge --
+
+
+@pytest.mark.parametrize("Q,nprobe,n_clusters", [(1, 4, 4), (5, 3, 6), (32, 4, 4),
+                                                 (77, 8, 16), (128, 16, 1000)])
+def test_k7_work_list_holds_every_pair_once_grouped_by_cluster(Q, nprobe, n_clusters):
+    rng = np.random.default_rng(Q)
+    qc = rng.standard_normal((Q, n_clusters)).astype(np.float32)
+    probes = torch.from_numpy(np.argsort(-qc, axis=1, kind="stable")[:, :nprobe].astype(np.int32))
+    S = 256
+    T, n_tiles, R, H = ts.probe_plan(Q, nprobe, n_clusters, 4 * S, S)
+    assert T in ts.TILE_Q and R == 1 and 1 <= H <= S // 8
+    pairs, tiles = ts.probe_work_list(probes, n_clusters, T, n_tiles)
+    again = ts.probe_work_list(probes, n_clusters, T, n_tiles)
+    assert torch.equal(pairs, again[0]) and torch.equal(tiles, again[1])
+    e = pairs.numpy().astype(np.int64)
+    assert sorted(e.tolist()) == list(range(Q * nprobe))  # every (q, rank) pair once
+    cid = probes.numpy().reshape(-1)[e]
+    # Grouped by cluster, ascending; within a cluster, pairs in their own order.
+    assert (np.diff(cid) >= 0).all()
+    assert all((np.diff(e[cid == c]) > 0).all() for c in np.unique(cid))
+    t_cid, t_off, t_nq = (x.numpy() for x in tiles)
+    live = t_nq > 0
+    n_live = int(live.sum())
+    assert live[:n_live].all() and not live[n_live:].any()  # the list, then nothing
+    assert (t_cid[n_live:] == Q * nprobe).all() and (t_off[n_live:] == Q * nprobe).all()
+    assert (t_nq <= T).all()
+    # The tiles cut the grouped pairs in order, each within one cluster.
+    assert np.array_equal(t_off[:n_live], np.concatenate([[0], np.cumsum(t_nq[:n_live])[:-1]]))
+    assert int(t_nq.sum()) == Q * nprobe
+    for c, off, nq in zip(t_cid[:n_live], t_off[:n_live], t_nq[:n_live]):
+        assert (cid[off : off + nq] == c).all()
+    # A cluster's tiles are full but its last.
+    for c in np.unique(cid):
+        nqs = t_nq[:n_live][t_cid[:n_live] == c]
+        assert (nqs[:-1] == T).all() and nqs.sum() == (cid == c).sum()
+
+
+@pytest.mark.parametrize("Q", [1, 32, 128])
+def test_k7_plan_cuts_long_buckets_into_ranges_and_short_ones_across_slots(Q):
+    """The 1M-row, 4-cluster index (1,232 chunks a bucket): one slot group
+    a block, R > 1 ranges; the 10M index (12 chunks): one range, blocks
+    sweeping slot groups. Either way about TARGET_BLOCKS blocks or more."""
+    T, n_tiles, R, H = ts.probe_plan(Q, 4, 4, 315392, 256)
+    assert T == max(16, Q) and n_tiles >= 4 and H == 32 and R > 1
+    assert 4 * R * H >= ts.TARGET_BLOCKS
+    T, n_tiles, R, H = ts.probe_plan(Q, 64, 4096, 3072, 256)
+    assert T == 16 and R == 1 and 32 % H == 0
+    fewest = max(Q * 64 // 16, 64)  # tiles the list has at least
+    assert n_tiles >= fewest and (H == 32 or fewest * H * 2 > ts.TARGET_BLOCKS)
+    assert ts.probe_plan(Q, 4, 4, 315392, 256, block_slots=4)[3] == 64  # float32 rows
+
+
+@pytest.mark.parametrize("ranges", [1, 2, 3, 5])
+def test_k7_chunk_ranges_cover_each_bucket_in_order(ranges):
+    S = 256
+    sizes = torch.tensor([0, 1, 255, 256, 257, 700, 1024], dtype=torch.int32)
+    g0, g1 = ts.chunk_ranges(sizes, S, ranges)
+    live = (sizes.long() + S - 1) // S
+    assert (g0[:, 0] == 0).all() and torch.equal(g1[:, -1], live)
+    assert torch.equal(g1[:, :-1], g0[:, 1:]) and (g1 >= g0).all()
+
+
+def _tie_table(dtype, M=1024, S=256):
+    """Exact ties by construction: integer rows and queries (exact dots in
+    any order), one scale for every int8 row, clusters 1, 3 and 4 copies of
+    cluster 0 (ties across probes) and every chunk of a bucket a copy of its
+    first (ties across chunks, so across ranges). Cluster 2 is empty,
+    clusters 3 and 4 end mid-chunk."""
+    rng = np.random.default_rng(11)
+    n_c = 5
+    chunk = rng.integers(-8, 9, (n_c, S, D))
+    rows = np.tile(chunk, (1, M // S, 1))
+    rows[[1, 3, 4]] = rows[0]
+    sizes = np.array([M, M, 0, 300, 700], np.int32)
+    q = rng.integers(-3, 4, (6, D)).astype(np.float32)
+    if dtype == "int8":
+        data = torch.from_numpy(rows.astype(np.int8))
+    else:
+        data = torch.from_numpy(rows.astype(np.float32)).to(getattr(torch, dtype))
+    rscales = torch.full((n_c, M), 0.01 if dtype == "int8" else 1.0)
+    # Every query probes every cluster, in its own order; 0 before 1 for
+    # some, 1 before 0 for others.
+    probes = np.stack([rng.permutation(n_c) for _ in range(len(q))]).astype(np.int32)
+    return data, rscales, torch.from_numpy(sizes), torch.from_numpy(probes), torch.from_numpy(q)
+
+
+@pytest.mark.parametrize("ranges", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k7_merge_of_split_partials_is_the_one_pass_fold(dtype, ranges):
+    """The kernel's split: partial banks per (query, rank, range), merged in
+    (rank, range) order with strict '>', give the one-pass fold of
+    ivf_probe_bank_reference bit for bit, values and indices, on a table
+    whose slots tie exactly across two probes and across ranges."""
+    data, rscales, sizes, probes, q = _tie_table(dtype)
+    part_v, part_i = ts.ivf_probe_partials_reference(data, rscales, sizes, probes, q, ranges)
+    assert part_v.shape == (6, 5 * ranges, 256)
+    (mv,), (mi,) = ts.ivf_probe_merge_reference(part_v, part_i)
+    (rv,), (ri,) = ts.ivf_probe_bank_reference(data, rscales, sizes, probes, q)
+    assert torch.equal(mv, rv) and torch.equal(mi, ri)
+    # The ties are real: every winning value recurs in another partial bank.
+    assert ((part_v == mv[:, None, :]).sum(dim=1) >= 2).all()
+    # An empty cluster's partial banks are all (-1e30, 0).
+    empty = (probes == 2).nonzero()
+    for qi, p in empty.tolist():
+        blk = slice(p * ranges, (p + 1) * ranges)
+        assert (part_v[qi, blk] == ts.NEG_INF).all() and (part_i[qi, blk] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k7_plain_matches_jax_few_clusters(dtype):
+    """K7's real regime: few clusters, each probed by every query."""
+    rng = np.random.default_rng(7)
+    n_c, m = 2, 1024
+    sizes = np.array([m, 700], np.int32)
+    rows = _unit(rng, n_c * m).reshape(n_c, m, D)
+    codes = rng.integers(-127, 128, (n_c, m, D)).astype(np.int8)
+    rsc = rng.random((n_c, m)).astype(np.float32) * 0.02 + 1e-3
+    q = _unit(rng, 5)
+    probes = np.argsort(-(q @ _unit(rng, n_c).T), axis=1, kind="stable").astype(np.int32)
+    if dtype == "int8":
+        jd, td = jnp.asarray(codes), _t(codes)
+    else:
+        rsc = np.ones((n_c, m), np.float32)
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        jd, td = jnp.asarray(rows, jdt), _t(rows).to(getattr(torch, dtype))
+    ref = js.ivf_probe_topk(jd, jnp.asarray(rsc), jnp.asarray(sizes), jnp.asarray(probes),
+                            jnp.asarray(q), 128, interpret=True)
+    got = ts.ivf_probe_topk(td, _t(rsc), _t(sizes), _t(probes), _t(q), 128)
+    table = dict(rows=rows, codes=codes, rscales=rsc)
+    _check_hits(*ref, *got, _score_fn(table, dtype, False, q))

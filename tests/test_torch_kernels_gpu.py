@@ -186,7 +186,8 @@ def test_flat_index_on_the_card_matches_cpu(cuda, tier, kernel):
         np.testing.assert_allclose([v for _, v in a], [v for _, v in b], atol=SCORE_TOL)
 
 
-# -- K1's tensor-core body (more than one query, non-exact modes) --
+# -- K1's tensor-core body (non-exact modes, every Q: a lone query takes
+# the 16-query tile, so its Q = 1 cases hold it to the body's tolerance) --
 
 # Query counts around the body's edges: a 16-query n-tile pair, a 32-query
 # fold pass, the 128-query tile and a second tile.
@@ -199,7 +200,7 @@ def _duplicate_heavy(gen, n, device, distinct=2048):
     return pool[torch.randint(0, distinct, (n,), generator=gen, device=device)]
 
 
-@pytest.mark.parametrize("q_n", TC_Q)
+@pytest.mark.parametrize("q_n", [1] + TC_Q)
 @pytest.mark.parametrize("keep2", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("corpus", ["random", "duplicates"])
@@ -434,26 +435,90 @@ def test_ivf_batch4_kernel_matches_plain(cuda, keep2, q_n):
     assert ((sl < sizes[cl.long()]) | (vals <= -1e29)).all()
 
 
-@pytest.mark.parametrize("q_n", [1, 32, 77])
+# Batch sizes around the work list's tile widths (16, 32, 64, 128 queries).
+K7_Q = [1, 2, 16, 17, 32, 77, 128]
+
+
+def _probe_table(cuda, table, dtype):
+    """(data, rscales, sizes, centroids, gen, nprobe) for K7:
+    - "ragged": _ivf_table's 64 clusters of 2,048 rows, 8 probes a query;
+    - "few": 3 clusters of 65,536 rows (sizes 65,536 / 40,000 / 1,000),
+      each probed by every query, so each cluster's 256 chunks are cut
+      into R > 1 ranges;
+    - "ties": 4 clusters of 8,192 integer rows, clusters 1-3 copies of 0
+      (ties across probes) and every 256-row chunk a copy of the first
+      (ties across chunks and ranges); with integer queries every dot is
+      exact in any order, so the bank must equal the plain one bit for bit.
+    int8 rows: quantized (random, few) or the integers with one scale."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    if table == "ragged":
+        gen, sizes, rows, centroids = _ivf_table(cuda, seed=6)
+        nprobe = 8
+    elif table == "few":
+        sizes = torch.tensor([65536, 40000, 1000], dtype=torch.int32, device=cuda)
+        rows = _unit(gen, 3 * 65536, cuda).reshape(3, 65536, D)
+        centroids = _unit(gen, 3, cuda)
+        nprobe = 3
+    else:
+        chunk = torch.randint(-8, 9, (1, 256, D), generator=gen, device=cuda).float()
+        rows = chunk.repeat(4, 32, 1)
+        sizes = torch.tensor([8192, 8192, 5000, 300], dtype=torch.int32, device=cuda)
+        centroids = _unit(gen, 4, cuda)
+        nprobe = 4
+    C, M = rows.shape[:2]
+    if dtype != "int8":
+        data = rows.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        rscales = torch.ones((C, M), device=cuda)
+    elif table == "ties":
+        data, rscales = rows.to(torch.int8), torch.full((C, M), 0.01, device=cuda)
+    else:
+        codes, sc = ft.quantize_rows_int8(rows.reshape(-1, D))
+        data, rscales = codes.reshape(C, M, D), sc.reshape(C, M)
+    return data, rscales, sizes, centroids, gen, nprobe
+
+
+@pytest.mark.parametrize("q_n,nprobe,n_clusters", [(1, 64, 4096), (32, 64, 4096), (128, 64, 4096),
+                                                   (1, 4, 4), (77, 8, 16), (128, 4, 4), (5, 3, 7)])
+def test_ivf_probe_work_list_kernel_equals_plain(cuda, q_n, nprobe, n_clusters):
+    """K7's work list from its three kernels is the plain version's, bit
+    for bit, tiles past the list's end included."""
+    from memex_tpu_torch.ops import ivf_scan as isc
+
+    gen = torch.Generator(device=cuda).manual_seed(q_n)
+    scores = torch.randn((q_n, n_clusters), generator=gen, device=cuda)
+    probes = torch.topk(scores, nprobe, dim=1).indices.to(torch.int32)
+    T, n_tiles, _, _ = isc.probe_plan(q_n, nprobe, n_clusters, 1 << 16, 256)
+    pairs, tiles = isc.probe_work_list(probes, n_clusters, T, n_tiles)
+    want = isc.probe_work_list(probes.cpu(), n_clusters, T, n_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(pairs.cpu(), want[0]) and torch.equal(tiles.cpu(), want[1])
+
+
+@pytest.mark.parametrize("q_n", K7_Q)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-def test_ivf_probe_kernel_matches_plain(cuda, dtype, q_n):
+@pytest.mark.parametrize("table", ["ragged", "few", "ties"])
+def test_ivf_probe_kernel_matches_plain(cuda, table, dtype, q_n):
+    """K7 (the probe-shared tensor-core scan and its merge) against the
+    one-pass plain fold: values within SCORE_TOL and indices equal but at
+    near-ties, bit for bit on the exact-tie table."""
     from memex_tpu_torch.index.ivf import _route
     from memex_tpu_torch.ops import ivf_scan as isc
 
-    gen, sizes, rows, centroids = _ivf_table(cuda, seed=6)
-    if dtype == "int8":
-        codes, sc = ft.quantize_rows_int8(rows.reshape(-1, D))
-        data, rscales = codes.reshape(IVF_C, IVF_M, D), sc.reshape(IVF_C, IVF_M)
-    else:
-        data = rows.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
-        rscales = torch.ones((IVF_C, IVF_M), device=cuda)
+    data, rscales, sizes, centroids, gen, nprobe = _probe_table(cuda, table, dtype)
+    C, M = data.shape[:2]
     q = _unit(gen, q_n, cuda)
-    probes = _route(centroids, q, 8).to(torch.int32)
+    if table == "ties":
+        q = torch.randint(-3, 4, (q_n, D), generator=gen, device=cuda).float()
+    probes = _route(centroids, q, nprobe).to(torch.int32)
+    if table == "few":
+        assert isc.probe_plan(q_n, nprobe, C, M, 256)[2] > 1
     before = ft.LAUNCHES["ivf_probe"]
     bank = isc.ivf_probe_bank_cuda(data, rscales, sizes, probes, q)
     assert ft.LAUNCHES["ivf_probe"] == before + 1
     plain = isc.ivf_probe_bank_reference(data, rscales, sizes, probes, q)
     torch.cuda.synchronize()
+    if table == "ties":
+        assert torch.equal(bank[0][0], plain[0][0]) and torch.equal(bank[1][0], plain[1][0])
 
     def score_of(qi, idx):
         rr = data.reshape(-1, D)[idx].float().bfloat16().float()
@@ -462,8 +527,9 @@ def test_ivf_probe_kernel_matches_plain(cuda, dtype, q_n):
     _bank_check(bank, plain, score_of)
     ki = bank[1][0].long()
     live = bank[0][0] > -1e29
-    own = (ki // IVF_M)[:, :, None] == probes.long()[:, None, :]
+    own = (ki // M)[:, :, None] == probes.long()[:, None, :]
     assert own.any(dim=2)[live].all()  # only the query's own probes
+    assert ((ki % M) < sizes.long()[ki // M])[live].all()
 
 
 @pytest.mark.parametrize("tier,kernel", [
@@ -510,13 +576,14 @@ def test_ivf_index_on_the_card_matches_cpu(cuda, tier, kernel):
                 assert abs(cpu_score.get(sa, b[-1][1]) - va) <= 2 * SCORE_TOL
 
 
-@pytest.mark.parametrize("q_n", TC_Q)
+@pytest.mark.parametrize("q_n", [1] + TC_Q)
 @pytest.mark.parametrize("keep2", [False, True])
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
 @pytest.mark.parametrize("corpus", ["random", "duplicates"])
 def test_k5_tensor_core_body_matches_plain(cuda, corpus, dtype, keep2, q_n):
     """K5's int8, bf16 and bf16-rounded float32 bodies on ragged buckets,
-    with a walk whose length is not a multiple of 16."""
+    with a walk whose length is not a multiple of 16; a lone query runs on
+    the 16-query tile."""
     from memex_tpu_torch.ops import ivf_batch as ib
 
     gen, sizes, rows, centroids = _ivf_table(cuda, seed=7 + q_n)
