@@ -46,10 +46,9 @@
 // banks add Q * nprobe * R * S * 8 bytes, written once and read once. On
 // an index with few clusters (the 1M-row, 4-cluster index: M = 315,392)
 // the bytes are 0.41 GB, 0.12 ms, at every Q. Items there are long, and R
-// cuts them so the grid fills the card at Q = 1; at the 10M shape an item
-// is 12 chunks, so a block sweeps several slot groups of it in turn
-// (ProbeTileWalk::sweep): a block set up (barriers, tile, ring) for 12
-// steps spent more on its set-up than on its rows.
+// cuts them so the grid fills the card at Q = 1. K7 takes only buckets of
+// more than 256 chunks of 1,024 rows (IVFIndex._scan sends the rest to
+// K5), so every item it gets has hundreds of steps for its block's set-up.
 
 #include "slot_bank.cuh"
 
@@ -64,10 +63,7 @@ struct ProbeItem {
 
 // The probe-shared walk of the tensor-core body (slot_bank.cuh,
 // GatheredWalk): step u of the slot group whose first slot is s0 reads rows
-// (g0 + u) * S + s0 ... of the item's cluster, a live prefix of them. A
-// block sweeps `sweep` slot groups in turn, so that where an item is short
-// (the 10M shape: 12 chunks) the block still walks hundreds of steps for
-// one tile and one set-up.
+// (g0 + u) * S + s0 ... of the item's cluster, a live prefix of them.
 struct ProbeTileWalk {
   using Item = ProbeItem;
   const int* pairs;   // [n_q * nprobe] q * nprobe + rank, grouped by cluster
@@ -75,7 +71,6 @@ struct ProbeTileWalk {
   const int* sizes;   // [C] rows per cluster
   int n_tiles, ranges, nprobe, m, s;
   int n_items;        // n_tiles * ranges: block rows of the grid
-  int sweep;          // slot groups a block walks
 
   __device__ __forceinline__ Item item(int y) const {
     Item it;
@@ -245,7 +240,6 @@ cudaError_t launch_items(const float* q, const void* data, int d, const ProbeTil
                          const memex::ScanArgs& a, int tile_q, cudaStream_t s) {
   using Op = memex::MmaTileOp<Rows>;
   constexpr int kW = Rows::kWarps;
-  if ((a.n_slots / kW) % w.sweep) return cudaErrorInvalidValue;
   const Op op{q, data, d};
   switch (tile_q) {
     case 16: return memex::launch_mma_scan<Op, kW, 2, 1, 1, ProbeTileWalk, false, false>(op, w, a, s);
@@ -281,20 +275,19 @@ int memex_ivf_probe_list(const int* probes, int n_pairs, int n_clusters, int til
 // probes [n_q, nprobe] int32. Builds the work list (tiles of at most tile_q
 // = 16, 32, 64 or 128 pairs, n_tiles of them at most, into the int32
 // scratch [3 * C + n_q * nprobe + 3 * n_tiles]), cuts each cluster's chunks
-// into `ranges`, runs the scan with `blocks_x` blocks across the slots (each
-// sweeping n_slots / (kW * blocks_x) slot groups) into part_v/part_i
+// into `ranges`, runs the scan into part_v/part_i
 // [n_q * nprobe * ranges, n_slots], then the merge into out_v/out_i
 // [n_q, n_slots], all on `stream`. Returns the first failed launch's
 // cudaError_t (0 on success).
 int memex_ivf_probe(const float* q, const void* data, int row_type, const float* scales,
                     const int* sizes, const int* probes, int n_clusters, int tile_q, int n_tiles,
-                    int ranges, int blocks_x, int* scratch, float* part_v, int* part_i,
+                    int ranges, int* scratch, float* part_v, int* part_i,
                     float* out_v, int* out_i, int n_q, int nprobe, int d, int n_slots, int m,
                     void* stream) {
   if (n_q <= 0 || nprobe <= 0 || d <= 0 || d % 16 || d > memex::kMmaMaxDim || n_slots <= 0 ||
       n_slots % 8 || m <= 0 || m % n_slots || row_type < 0 || row_type > 2 ||
       (row_type == 2) != (scales != nullptr) || n_clusters <= 0 || n_tiles <= 0 ||
-      ranges <= 0 || blocks_x <= 0 || (long long)n_tiles * ranges > 65535)
+      ranges <= 0 || (long long)n_tiles * ranges > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_pairs = n_q * nprobe;
@@ -304,10 +297,8 @@ int memex_ivf_probe(const float* q, const void* data, int row_type, const float*
       build_list(probes, n_pairs, n_clusters, tile_q, n_tiles, scratch, pairs, tiles, s);
   if (err != cudaSuccess) return (int)err;
   const memex::ScanArgs a{scales, 1.f, nullptr, part_v, part_i, nullptr, nullptr, n_q, n_slots};
-  const int kw = row_type == 0 ? memex::F32Rows::kWarps : memex::Int8Rows::kWarps;
   const ProbeTileWalk w{pairs, tiles, sizes, n_tiles, ranges, nprobe, m, n_slots,
-                        n_tiles * ranges, n_slots / kw / blocks_x};
-  if (w.sweep <= 0) return (int)cudaErrorInvalidValue;
+                        n_tiles * ranges};
   if (row_type == 2)
     err = launch_items<memex::Int8Rows>(q, data, d, w, a, tile_q, s);
   else if (row_type == 1)

@@ -594,7 +594,7 @@ struct MmaTileOp {
   // zeros where that is -1. A thread issues kBatch float4 loads before it
   // converts and stores them, so a block waits for ~tq * d / (4 * threads *
   // kBatch) loads in turn, not one per element: a tile of 128 queries is
-  // 12,288 float4s, 43 a thread (K7 stages one per short item).
+  // 12,288 float4s, 43 a thread (K7 stages one per work item).
   template <class RowOf>
   __device__ __forceinline__ void stage_rows(char* tile, RowOf&& row_of, int tq) const {
     constexpr int kBatch = 8;
@@ -678,15 +678,6 @@ __host__ __device__ constexpr int mma_ring(int tq) {
 //   walk.query(it, qq)                   the batch row of tile query qq
 //   walk.out_row(it, qq)                 the bank row its bank is stored at
 //   walk.steps(s0, it), walk.block_step(s0, it, u, w)  as any walk
-//   walk.sweep                           slot groups (kW slots each) a block
-//                                        walks in turn: 1, or more where an
-//                                        item's walk is short, so that a
-//                                        block's set-up (its barriers and
-//                                        tile) serves more rows. The block
-//                                        walks each slot group's steps in
-//                                        turn, and a consumer stores its
-//                                        banks where the next group starts,
-//                                        mid-fold if need be.
 template <class W, class = void>
 struct GatheredWalk : std::false_type {};
 template <class W>
@@ -781,15 +772,9 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   const unsigned full = smem_addr(warps_smem + kW * kG * kWarpSmem);  // [kRing]: a stage landed
   const unsigned empty = full + 8 * kRing;                            // [kRing]: a stage was read
   const char* const rows = static_cast<const char*>(op.db);
-  // The block's slot groups of kW slots from s0 on (one but in a gathered
-  // walk's sweep) and its steps: nbg, its first slot's (columns are int32,
-  // so steps are), for each slot group in turn (a later group's last step
-  // may be masked).
-  int sweep = 1;
-  if constexpr (kGathered) sweep = walk.sweep;
-  const int s0 = blockIdx.x * kW * sweep;
-  const int nbg = static_cast<int>(walk.steps(s0, it));
-  const int nb = nbg * sweep;
+  const int s0 = blockIdx.x * kW;
+  // The block's steps: its first slot's (columns are int32, so steps are).
+  const int nb = static_cast<int>(walk.steps(s0, it));
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRing; ++s) {
@@ -824,16 +809,7 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     };
     auto fetch = [&](int u) {
       Fetched f;
-      f.at = BlockStep{0, 0, 0, 0};
-      if (lane < kSteps && u < nb) {
-        if constexpr (kGathered) {
-          // Step u % nbg of slot group u / nbg, masked past that group's own.
-          const int g = u / nbg, gu = u - g * nbg, gs0 = s0 + g * kW;
-          if (gu < walk.steps(gs0, it)) f.at = walk.block_step(gs0, it, gu, kW);
-        } else {
-          f.at = walk.block_step(s0, it, u, kW);
-        }
-      }
+      f.at = lane < kSteps && u < nb ? walk.block_step(s0, it, u, kW) : BlockStep{0, 0, 0, 0};
 #pragma unroll
       for (int i = 0; i < kW; ++i) {
         f.scale[i] = a.scales && i < f.at.live ? a.scales[(long long)f.at.col0 + i] : 1.f;
@@ -875,10 +851,10 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   }
 
   // A consumer: warp g * kW + w owns slot s0 + w (and, with two folds, slot
-  // s0 + w + gap) for the queries of group g and walks the block's steps;
-  // in a sweep, slot s0 + j * kW + w for slot group j in turn.
+  // s0 + w + gap) for the queries of group g and walks the block's steps.
   const int w = warp % kW;
   const int qbase = warp / kW * (kNT * 8);
+  const int slot = s0 + w;
   float* const scores = reinterpret_cast<float*>(warps_smem + warp * kWarpSmem);
   StepTail* const tails = reinterpret_cast<StepTail*>(scores + kMmaSteps * kScoreStride);
   const int r = lane >> 2;  // the A / C fragment's step of an m-tile (and step + 8)
@@ -888,21 +864,6 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
   // default member initialisers (its banks started at 0, not -1e30).
   SlotBank<kKeep2> bank[kF * kPasses];
   Acc acc[kF * kMT][kNT][4];
-  // Bank (f, p) of slot group j to the outputs, then a fresh one in its place.
-  auto store = [&](int f, int p, int j) {
-    const int qq = qbase + kFoldQ * p + lane;
-    if (kFoldQ * p + lane < kNT * 8 && qq < nq) {
-      long long row;
-      if constexpr (kGathered)
-        row = walk.out_row(it, qq);
-      else
-        row = it + qq;
-      bank[f * kPasses + p].store(a.v, a.i, a.v2, a.i2,
-                                  row * a.n_slots + s0 + j * kW + w + f * gap);
-    }
-    bank[f * kPasses + p] = SlotBank<kKeep2>{};
-  };
-  int stored = 0;  // slot groups stored
 
   for (int u0 = 0; u0 < nb; u0 += kSteps) {
     // Lane l waits for step u0 + l and takes this slot's part of its tail.
@@ -943,26 +904,11 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
     }
     __syncwarp();  // the group's rows and tails are read: release its stages
     if (has_step) mbar_arrive(empty + 8 * ((u0 + lane) % kRing));
-    // In a sweep: bit st of `ends` marks step u0 + st as a slot group's
-    // first, past the block's first: the banks go out before it folds.
-    unsigned ends = 0u;
-    if (sweep > 1) {
-      for (int b = (u0 + nbg - 1) / nbg * nbg; b < u0 + kSteps && b < nb; b += nbg)
-        if (b > 0 && b >= u0) ends |= 1u << (b - u0);
-      if (!any) {  // no fold: only the stores
-        for (int e = __popc(ends); e > 0; --e, ++stored)
-#pragma unroll
-          for (int f = 0; f < kF; ++f)
-#pragma unroll
-            for (int p = 0; p < kPasses; ++p) store(f, p, stored);
-        ends = 0u;
-      }
-    }
+    if (!any) continue;
     // The m-tiles' scores, fold by fold, go through the one 16-step score
     // tile in turn, so each slot's fold stays in step order.
 #pragma unroll
     for (int t = 0; t < kMT; ++t) {
-      if (!any) break;
 #pragma unroll
       for (int f = 0; f < kF; ++f) {
         const StepTail* const tt = tails + f * kGroupSteps + kMmaSteps * t;
@@ -984,29 +930,28 @@ mma_scan_kernel(const Op op, const Walk walk, const ScanArgs a) {
             *reinterpret_cast<float2*>(scores + (r + 8) * kScoreStride + 8 * jj + 2 * c) = hi;
           }
           __syncwarp();
-          if (ends == 0u) {  // every group but a sweep's few: the fold alone
 #pragma unroll
-            for (int st = 0; st < kMmaSteps; ++st)
-              bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
-          } else {
-#pragma unroll
-            for (int st = 0; st < kMmaSteps; ++st) {
-              const int k = kMmaSteps * t + st;  // the step in the group
-              if (ends >> k & 1u) store(f, p, stored + __popc(ends & ((1u << k) - 1u)));
-              bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
-            }
-          }
+          for (int st = 0; st < kMmaSteps; ++st)
+            bank[f * kPasses + p].fold(scores[st * kScoreStride + lane], tt[st].col);
           __syncwarp();
         }
       }
     }
-    stored += __popc(ends);
   }
-  for (; stored < sweep; ++stored)
 #pragma unroll
-    for (int f = 0; f < kF; ++f)
+  for (int f = 0; f < kF; ++f)
 #pragma unroll
-      for (int p = 0; p < kPasses; ++p) store(f, p, stored);
+    for (int p = 0; p < kPasses; ++p) {
+      const int qq = qbase + kFoldQ * p + lane;
+      if (kFoldQ * p + lane < kNT * 8 && qq < nq) {
+        long long row;  // the bank row: a gathered walk names it
+        if constexpr (kGathered)
+          row = walk.out_row(it, qq);
+        else
+          row = it + qq;
+        bank[f * kPasses + p].store(a.v, a.i, a.v2, a.i2, row * a.n_slots + slot + f * gap);
+      }
+    }
 }
 
 template <class Op, int kW, int kNT, int kG, int kMT, class Walk, bool kKeep2, bool kAlive>
@@ -1020,12 +965,9 @@ cudaError_t launch_mma_scan(const Op& op, const Walk& walk, const ScanArgs& a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int cols = a.n_slots / (kW * Op::kFolds), rows = (a.n_q + kMmaTileQ - 1) / kMmaTileQ;
-  if constexpr (GatheredWalk<Walk>::value) {
-    cols /= walk.sweep;
-    rows = walk.n_items;
-  }
-  const dim3 grid(cols, rows);
+  int rows = (a.n_q + kMmaTileQ - 1) / kMmaTileQ;
+  if constexpr (GatheredWalk<Walk>::value) rows = walk.n_items;
+  const dim3 grid(a.n_slots / (kW * Op::kFolds), rows);
   kernel<<<grid, (kW * kG + 1) * 32, smem, stream>>>(op, walk, a);
   return cudaGetLastError();
 }

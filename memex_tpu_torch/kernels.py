@@ -164,7 +164,7 @@ def library() -> ctypes.CDLL:
             lib.memex_ivf_probe.argtypes = [
                 c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,  # q, data, row_type, scales
                 c.c_void_p, c.c_void_p,  # sizes, probes
-                c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # C, tile_q, n_tiles, ranges, blocks_x
+                c.c_int, c.c_int, c.c_int, c.c_int,  # C, tile_q, n_tiles, ranges
                 c.c_void_p, c.c_void_p, c.c_void_p,  # scratch, part_v, part_i
                 c.c_void_p, c.c_void_p,  # v, i
                 c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,  # n_q, nprobe, d, n_slots, m

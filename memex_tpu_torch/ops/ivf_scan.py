@@ -34,22 +34,17 @@ TILE_Q = (16, 32, 64, 128)
 # H100's 132 SMs (scan_bench, PERF.md section 6: 132 and 264 within the
 # spread of two runs, 528 and more slower; each block re-stages its tile).
 TARGET_BLOCKS = 132
-# A bucket of at most this many chunks is short: its items are cut across
-# the slots (blocks sweeping slot groups) rather than into chunk ranges.
-_SHORT_BUCKET = 32
 # The grid's second dimension: one row per (tile, range).
 _MAX_ITEMS = 65535
 
 
 def probe_plan(Q: int, nprobe: int, C: int, M: int, S: int, block_slots: int = 8):
-    """(T, n_tiles, R, H) for a batch, from its shape alone (no host sync):
+    """(T, n_tiles, R) for a batch, from its shape alone (no host sync):
     T the tile width, twice the mean queries a probed cluster holds (Q *
     nprobe / C), at most the batch; n_tiles an upper bound of the tile
     count (each cluster's last tile may be partial); R the ranges each
-    cluster's chunks are cut into and H the blocks across the S / block_slots
-    slot groups (each block sweeps the rest), so that the fewest tiles the
-    list can have fill about TARGET_BLOCKS blocks: long buckets take H = all
-    slot groups and R > 1, short ones R = 1 and H as wide as needed.
+    cluster's chunks are cut into, so that the fewest tiles the list can
+    have, each S / block_slots blocks wide, fill about TARGET_BLOCKS blocks.
     block_slots: the body's slots a block, 8 (int8 and bf16 rows) or 4
     (float32)."""
     E = Q * nprobe
@@ -58,16 +53,9 @@ def probe_plan(Q: int, nprobe: int, C: int, M: int, S: int, block_slots: int = 8
     n_tiles = min(E, E // T + min(C, E))
     # At least ceil(E / T) tiles, and a query's nprobe probes are distinct.
     fewest = max(-(-E // T), min(nprobe, C))
-    groups = S // block_slots
-    if M // S > _SHORT_BUCKET:
-        H = groups
-        R = max(1, min(-(-TARGET_BLOCKS // (groups * fewest)), M // S,
-                       _MAX_ITEMS // max(1, n_tiles)))
-    else:
-        R, H = 1, 1
-        while 2 * H <= groups and fewest * 2 * H <= TARGET_BLOCKS:
-            H *= 2
-    return T, n_tiles, R, H
+    R = max(1, min(-(-TARGET_BLOCKS // (S // block_slots * fewest)), M // S,
+                   _MAX_ITEMS // max(1, n_tiles)))
+    return T, n_tiles, R
 
 
 def probe_work_list(probes: torch.Tensor, n_clusters: int, tile_q: int, n_tiles: int):
@@ -222,7 +210,7 @@ def ivf_probe_bank_cuda(data, rscales, sizes, probes, queries, *, banks: int = 2
         raise ValueError(f"table of {C} x {M} rows: the fold index must fit in int32")
     S = banks * _LANES
     Q, nprobe = probes.shape
-    T, n_tiles, R, H = probe_plan(Q, nprobe, C, M, S, 4 if data.dtype == torch.float32 else 8)
+    T, n_tiles, R = probe_plan(Q, nprobe, C, M, S, 4 if data.dtype == torch.float32 else 8)
     if n_tiles * R > _MAX_ITEMS:
         raise ValueError(f"{Q} x {nprobe} probes make up to {n_tiles} tiles: the kernel's "
                          f"grid takes {_MAX_ITEMS} items")
@@ -239,7 +227,7 @@ def ivf_probe_bank_cuda(data, rscales, sizes, probes, queries, *, banks: int = 2
         err = lib.memex_ivf_probe(
             queries.data_ptr(), data.data_ptr(), ROW_TYPES[data.dtype],
             rscales.data_ptr() if int8 else None, sizes.data_ptr(), probes.data_ptr(), C, T,
-            n_tiles, R, H, ints[Q * S + parts :].data_ptr(), floats[Q * S :].data_ptr(),
+            n_tiles, R, ints[Q * S + parts :].data_ptr(), floats[Q * S :].data_ptr(),
             ints[Q * S :].data_ptr(), vals.data_ptr(), idx.data_ptr(), Q, nprobe, D, S, M,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

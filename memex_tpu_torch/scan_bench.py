@@ -192,44 +192,21 @@ def k7_emit(emit, isc, q_n, q, data, rscales, sizes, probes, lib_ms, shape):
     emit(kernel="K7", rows="int8", shape=shape, Q=q_n, nprobe=nprobe, rows_read=read,
          rows_scored=scored, ms=ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
          partial_bank_bytes=partial, bound_with_partials_ms=k7_bound(*args, partial)[0],
-         **k7_parts(isc, q_n, q, data, rscales, sizes, probes))
+         **k7_list(isc, q_n, data, probes))
 
 
-def k7_parts(isc, q_n, q, data, rscales, sizes, probes) -> dict:
-    """For a checkout whose K7 runs a work list: its plan, the list's build
-    alone (list_ms) and the whole launch on outputs and scratch made
-    beforehand (kernel_ms: the list, the scan and the merge)."""
-    import torch
-
-    from memex_tpu_torch import kernels
-    from memex_tpu_torch.ops import fused_topk as ft
-
+def k7_list(isc, q_n, data, probes) -> dict:
+    """For a checkout whose K7 runs a work list: its plan and the list's
+    build alone (list_ms; `ms` less it is the scan, the merge and the
+    wrapper's host time)."""
     if not hasattr(isc, "probe_work_list"):
         return {}
     C, M, _ = data.shape
-    nprobe = probes.shape[1]
-    T, n_tiles, R, H = isc.probe_plan(q_n, nprobe, C, M, IVF_PROBE_S)
+    T, n_tiles, R = isc.probe_plan(q_n, probes.shape[1], C, M, IVF_PROBE_S)
     list_ms = cuda_ms(lambda: isc.probe_work_list(probes, C, T, n_tiles))
     tiles = isc.probe_work_list(probes, C, T, n_tiles)[1]
-    scratch = torch.empty(3 * C + q_n * nprobe + 3 * n_tiles, dtype=torch.int32,
-                          device=data.device)
-    part_v = torch.empty((q_n * nprobe * R, IVF_PROBE_S), device=data.device)
-    part_i = torch.empty((q_n * nprobe * R, IVF_PROBE_S), dtype=torch.int32, device=data.device)
-    vals, idx = ft._bank_outputs(data, q_n, IVF_PROBE_S, False)
-    lib = kernels.library()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def kernel_only():
-        err = lib.memex_ivf_probe(
-            q.data_ptr(), data.data_ptr(), 2, rscales.data_ptr(), sizes.data_ptr(),
-            probes.data_ptr(), C, T, n_tiles, R, H, scratch.data_ptr(), part_v.data_ptr(),
-            part_i.data_ptr(), vals[0].data_ptr(), idx[0].data_ptr(), q_n, nprobe, DIM,
-            IVF_PROBE_S, M, stream)
-        if err != 0:
-            raise RuntimeError(f"ivf_probe launch failed: cudaError {err}")
-
-    return dict(tile_q=T, ranges=R, blocks_x=H, tiles_bound=n_tiles,
-                tiles=int((tiles[2] > 0).sum()), list_ms=list_ms, kernel_ms=cuda_ms(kernel_only))
+    return dict(tile_q=T, ranges=R, tiles_bound=n_tiles, tiles=int((tiles[2] > 0).sum()),
+                list_ms=list_ms)
 
 
 def int_mm_ms(a, b_t, what: str) -> float | None:
@@ -263,9 +240,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default=ALL_KERNELS)
     ap.add_argument("--queries", default="1,32,128", help="batch sizes, comma-separated")
-    ap.add_argument("--k7-blocks", type=int, default=None,
-                    help="K7's TARGET_BLOCKS (ops/ivf_scan.py), to try another cut of the "
-                         "buckets into ranges")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -425,9 +399,6 @@ def main(argv: list[str] | None = None) -> int:
     # K7 on the 10M table, each query with its own 64 probes.
     from memex_tpu_torch.index.ivf import _route
     from memex_tpu_torch.ops import ivf_scan as isc
-
-    if args.k7_blocks is not None:
-        isc.TARGET_BLOCKS = args.k7_blocks
 
     for q_n, q in queries.items():
         probes = _route(centroids, q, IVF_NPROBE).to(torch.int32)

@@ -245,8 +245,8 @@ def test_k7_work_list_holds_every_pair_once_grouped_by_cluster(Q, nprobe, n_clus
     qc = rng.standard_normal((Q, n_clusters)).astype(np.float32)
     probes = torch.from_numpy(np.argsort(-qc, axis=1, kind="stable")[:, :nprobe].astype(np.int32))
     S = 256
-    T, n_tiles, R, H = ts.probe_plan(Q, nprobe, n_clusters, 4 * S, S)
-    assert T in ts.TILE_Q and R == 1 and 1 <= H <= S // 8
+    T, n_tiles, R = ts.probe_plan(Q, nprobe, n_clusters, 4 * S, S)
+    assert T in ts.TILE_Q and 1 <= R <= 4
     pairs, tiles = ts.probe_work_list(probes, n_clusters, T, n_tiles)
     again = ts.probe_work_list(probes, n_clusters, T, n_tiles)
     assert torch.equal(pairs, again[0]) and torch.equal(tiles, again[1])
@@ -275,17 +275,20 @@ def test_k7_work_list_holds_every_pair_once_grouped_by_cluster(Q, nprobe, n_clus
 
 @pytest.mark.parametrize("Q", [1, 32, 128])
 def test_k7_plan_cuts_long_buckets_into_ranges_and_short_ones_across_slots(Q):
-    """The 1M-row, 4-cluster index (1,232 chunks a bucket): one slot group
-    a block, R > 1 ranges; the 10M index (12 chunks): one range, blocks
-    sweeping slot groups. Either way about TARGET_BLOCKS blocks or more."""
-    T, n_tiles, R, H = ts.probe_plan(Q, 4, 4, 315392, 256)
-    assert T == max(16, Q) and n_tiles >= 4 and H == 32 and R > 1
-    assert 4 * R * H >= ts.TARGET_BLOCKS
-    T, n_tiles, R, H = ts.probe_plan(Q, 64, 4096, 3072, 256)
-    assert T == 16 and R == 1 and 32 % H == 0
+    """The 1M-row, 4-cluster index (1,232 chunks a bucket), K7's regime:
+    R > 1 ranges, so that its fewest tiles fill about TARGET_BLOCKS blocks
+    of one slot group each (32 across S = 256); the 10M index (12 chunks a
+    bucket, off K7's path), whose tiles alone fill the card: one range,
+    with the slots still one group a block."""
+    T, n_tiles, R = ts.probe_plan(Q, 4, 4, 315392, 256)
+    assert T == max(16, Q) and n_tiles >= 4 and R > 1
+    assert 4 * R * 32 >= ts.TARGET_BLOCKS > 4 * (R - 1) * 32
+    T, n_tiles, R = ts.probe_plan(Q, 64, 4096, 3072, 256)
     fewest = max(Q * 64 // 16, 64)  # tiles the list has at least
-    assert n_tiles >= fewest and (H == 32 or fewest * H * 2 > ts.TARGET_BLOCKS)
-    assert ts.probe_plan(Q, 4, 4, 315392, 256, block_slots=4)[3] == 64  # float32 rows
+    assert T == 16 and R == 1 and n_tiles >= fewest
+    # float32 rows: 4 slots a block, 64 blocks across the slots.
+    R = ts.probe_plan(Q, 4, 4, 315392, 256, block_slots=4)[2]
+    assert 4 * R * 64 >= ts.TARGET_BLOCKS > 4 * (R - 1) * 64
 
 
 @pytest.mark.parametrize("ranges", [1, 2, 3, 5])

@@ -443,12 +443,15 @@ def _probe_table(cuda, table, dtype):
     """(data, rscales, sizes, centroids, gen, nprobe) for K7:
     - "ragged": _ivf_table's 64 clusters of 2,048 rows, 8 probes a query;
     - "few": 3 clusters of 65,536 rows (sizes 65,536 / 40,000 / 1,000),
-      each probed by every query, so each cluster's 256 chunks are cut
-      into R > 1 ranges;
-    - "ties": 4 clusters of 8,192 integer rows, clusters 1-3 copies of 0
-      (ties across probes) and every 256-row chunk a copy of the first
-      (ties across chunks and ranges); with integer queries every dot is
-      exact in any order, so the bank must equal the plain one bit for bit.
+      2 probes a query, so that each cluster's 256 chunks are cut into
+      R > 1 ranges for every row type;
+    - "ties": 4 clusters of 16,384 integer rows (sizes 16,384 / 16,384 /
+      10,000 / 300: two end mid-chunk, and the last has fewer live chunks
+      than ranges), 2 probes a query, clusters 1-3 copies of 0 (ties across
+      probes) and every 256-row chunk a copy of the first (ties across
+      chunks and ranges: its 64 chunks are cut into R > 1 ranges); with
+      integer queries every dot is exact in any order, so the bank must
+      equal the plain one bit for bit.
     int8 rows: quantized (random, few) or the integers with one scale."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     if table == "ragged":
@@ -458,13 +461,13 @@ def _probe_table(cuda, table, dtype):
         sizes = torch.tensor([65536, 40000, 1000], dtype=torch.int32, device=cuda)
         rows = _unit(gen, 3 * 65536, cuda).reshape(3, 65536, D)
         centroids = _unit(gen, 3, cuda)
-        nprobe = 3
+        nprobe = 2
     else:
         chunk = torch.randint(-8, 9, (1, 256, D), generator=gen, device=cuda).float()
-        rows = chunk.repeat(4, 32, 1)
-        sizes = torch.tensor([8192, 8192, 5000, 300], dtype=torch.int32, device=cuda)
+        rows = chunk.repeat(4, 64, 1)
+        sizes = torch.tensor([16384, 16384, 10000, 300], dtype=torch.int32, device=cuda)
         centroids = _unit(gen, 4, cuda)
-        nprobe = 4
+        nprobe = 2
     C, M = rows.shape[:2]
     if dtype != "int8":
         data = rows.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
@@ -487,7 +490,7 @@ def test_ivf_probe_work_list_kernel_equals_plain(cuda, q_n, nprobe, n_clusters):
     gen = torch.Generator(device=cuda).manual_seed(q_n)
     scores = torch.randn((q_n, n_clusters), generator=gen, device=cuda)
     probes = torch.topk(scores, nprobe, dim=1).indices.to(torch.int32)
-    T, n_tiles, _, _ = isc.probe_plan(q_n, nprobe, n_clusters, 1 << 16, 256)
+    T, n_tiles, _ = isc.probe_plan(q_n, nprobe, n_clusters, 1 << 16, 256)
     pairs, tiles = isc.probe_work_list(probes, n_clusters, T, n_tiles)
     want = isc.probe_work_list(probes.cpu(), n_clusters, T, n_tiles)
     torch.cuda.synchronize()
@@ -510,8 +513,8 @@ def test_ivf_probe_kernel_matches_plain(cuda, table, dtype, q_n):
     if table == "ties":
         q = torch.randint(-3, 4, (q_n, D), generator=gen, device=cuda).float()
     probes = _route(centroids, q, nprobe).to(torch.int32)
-    if table == "few":
-        assert isc.probe_plan(q_n, nprobe, C, M, 256)[2] > 1
+    if table != "ragged":  # the chunks are cut into ranges
+        assert isc.probe_plan(q_n, nprobe, C, M, 256, 4 if dtype == "float32" else 8)[2] > 1
     before = ft.LAUNCHES["ivf_probe"]
     bank = isc.ivf_probe_bank_cuda(data, rscales, sizes, probes, q)
     assert ft.LAUNCHES["ivf_probe"] == before + 1
