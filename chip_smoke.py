@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout and drives
-the ingest-and-search path of every flat tier, failing (non-zero exit, no
-result line) on any failed phase:
+the ingest-and-search path of every flat tier, the IVF tier and the
+sharded tiers, failing (non-zero exit, no result line) on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
   1. each scan kernel against its plain PyTorch version at the flat
@@ -46,11 +46,24 @@ result line) on any failed phase:
      as the HTTP run's float32 store; exact with keep2), and on the
      4-cluster one K7 on its own probes at Q = 1 and 32, against their
      plain versions (K7's line in the kernels list is this index's).
+  5. the sharded tiers, four shards on the one card: ShardedFlatIndex on
+     phase 3's rows in the float32 (K1), int8 (K2), int8-bf16-queries
+     (K3) and int4 (K4) tiers, and ShardedIVFIndex at the 10M
+     configuration (K5), built with build_device from phase 4's device
+     codes: each search launches its kernel once a shard; every hit's
+     score is its row's under the tier's arithmetic; recall@10 against the
+     float32 oracles and the top-10 overlap with phase 3's unsharded
+     FlatIndex at their bars; shard 0's bank against its plain version at
+     Q = 32; search times at Q = 1 / 32 / 128 beside the unsharded
+     indexes' (FlatIndex.search in phase 3, IVFIndex.search in phase 4);
+     then the HTTP server on a `tpu+mesh://` int8 store, its searches
+     running K2 (`/api/stats`).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts (from the main-path run of each:
-HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
-searches for K3 and K4), errors and times at Q = 32: the kernel's, its
+the kernels with their launch counts (summed over the main-path runs of
+each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
+searches for K3 and K4, and phase 5's sharded path for K1-K5), errors
+(phase 5's shard banks included) and times at Q = 32: the kernel's, its
 plain version's, its bound (the larger of the bytes it must move at 3.35
 TB/s and its operations at the card's peak for their type, live rows
 only) and one PyTorch call computing the same product on operands laid
@@ -566,11 +579,27 @@ TIERS = (
     ("int4-refine", {"dtype": "int4", "refine": True}, "fused_topk_int4q", 0.99),
 )
 TIMED_TIERS = ("float32", "int8", "int4")
+# The tiers phase 5 shards: one for each of K1-K4.
+SHARDED_TIERS = ("float32", "int8", "int8-bf16-queries", "int4")
 
 
-def phase3(label: str, seed: int, work: str) -> dict:
+def search_ms(index, q_np, runs: int = 10) -> float:
+    """Median host-clock ms of index.search(q_np, 10) (it ends in the copy
+    back of the hits), after one warmup call."""
+    index.search(q_np, 10)
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        index.search(q_np, 10)
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase3(label: str, seed: int, work: str) -> tuple[dict, dict]:
     """Each tier's 1M-row index in turn (freed before the next). Returns
-    the launches each kernel made in its tiers' searches."""
+    the launches each kernel made in its tiers' searches, and for phase 5
+    the rows, queries, oracle, and each sharded tier's unsharded hits and
+    FlatIndex.search times."""
     import numpy as np
     import torch
 
@@ -595,6 +624,7 @@ def phase3(label: str, seed: int, work: str) -> dict:
     fqp = FusedQueryPath(engine)
     texts = make_docs(random.Random(seed + 5), 128)
     launches = dict.fromkeys(ft.LAUNCHES, 0)
+    flat = {"rows": base_np, "queries": q_np, "oracle": oracle, "src": src, "hits": {}, "ms": {}}
     for name, opts, kernel, bar in TIERS:
         t0 = time.perf_counter()
         store = TpuFlatStore(None, f"scale-{name}", dim=DIM, device=dev, **opts)
@@ -619,11 +649,17 @@ def phase3(label: str, seed: int, work: str) -> dict:
               f"(bar {bar})", flush=True)
         check(top1 >= 0.99, f"{name}: source row first for only {top1:.4f} of queries")
         check(recall >= bar, f"{name}: recall@10 {recall:.4f} < {bar}")
+        if name in SHARDED_TIERS:
+            flat["hits"][name] = hits
+            flat["ms"][name] = {Q: search_ms(index, q_np[:Q]) for Q in TIMED_Q}
+            times = " / ".join(f"{flat['ms'][name][Q]:.3f}" for Q in TIMED_Q)
+            print(f"[{label}] phase3 {name} FlatIndex.search median_ms at Q=1/32/128 "
+                  f"{times}", flush=True)
         if name in TIMED_TIERS:
             launches[kernel] += time_query_path(label, name, fqp, store, texts, kernel)
         del store, index
         torch.cuda.empty_cache()
-    return launches
+    return launches, flat
 
 
 def time_query_path(label: str, name: str, fqp, store, texts: list[str], kernel: str) -> int:
@@ -753,9 +789,10 @@ def compare_bank(bank, plain, score_of) -> tuple[float, int]:
     return err, n_diff
 
 
-def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
+def phase4(label: str, seed: int, work: str) -> tuple[dict, dict, dict]:
     """The IVF tier on the card. Returns (launches of K6 and K7 in
-    IVFIndex.search, kernel stats of K5-K7)."""
+    IVFIndex.search, kernel stats of K5-K7, and for phase 5 the 10M
+    corpus's device codes, queries, oracle and IVFIndex.search times)."""
     import numpy as np
     import torch
 
@@ -790,8 +827,6 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     index.build_device(codes, scales, list(range(N_10M)))
     torch.cuda.synchronize()
-    del codes, scales
-    torch.cuda.empty_cache()
     C, M, _ = index.data.shape
     data4, rsc4 = index._int4_mirror()
     print(f"[{label}] phase4 10M build_device seconds={time.perf_counter() - t0:.3f} C={C} "
@@ -943,6 +978,11 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
               flush=True)
         check(rec >= 0.93, f"10M IVF scan_int4={scan_int4}: recall@10 {rec:.4f} < 0.93")
     index.scan_int4 = False
+    ivf10m = {"codes": codes, "scales": scales, "queries": queries, "oracle": oracle,
+              "ms": {Q: search_ms(index, q_np[:Q]) for Q in TIMED_Q}}
+    times = " / ".join(f"{ivf10m['ms'][Q]:.3f}" for Q in TIMED_Q)
+    print(f"[{label}] phase4 10M IVFIndex.search median_ms at Q=1/32/128 {times}", flush=True)
+    del codes, scales
 
     engine = EmbeddingEngine(os.path.join(work, "model"), device=dev)
     texts = make_docs(random.Random(seed + 7), 128)
@@ -1017,7 +1057,7 @@ def phase4(label: str, seed: int, work: str) -> tuple[dict, dict]:
         stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], err)
         del index
         torch.cuda.empty_cache()
-    return launches, stats
+    return launches, stats, ivf10m
 
 
 def compare_float_scan(label: str, name: str, index, q) -> float:
@@ -1119,6 +1159,195 @@ def compare_probe_scan(label: str, name: str, index, q, block: int = 8) -> dict:
               f"({out['bound_by']}) library_ms={out['library_ms']:.4f}", flush=True)
     return out
 
+# -- phase 5 -------------------------------------------------------------------
+
+# Shards of the sharded indexes, all on the one card: each is its own
+# block of tensors with its own scan launches, as on four cards.
+SHARDS = 4
+
+
+def hit_rows(index, hits):
+    """Global rows of a sharded flat index's hits, [Q, k] on the host."""
+    import numpy as np
+
+    return np.asarray([[index._id_to_row[sid] for sid, _ in h] for h in hits])
+
+
+def tier_scores(kernel: str, q, rows, scales):
+    """Each hit's score under its tier's arithmetic, from the stored rows
+    (float32 rows, or int8 codes and their scales): K1 bf16 inputs with
+    float32 sums; K2 the exact integer dot times the row, then the query
+    scale; K3 and K4's int8 rerank bf16 queries against the codes times
+    the row scale."""
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    if kernel == "fused_topk_int8q":
+        q8, qs = ft.quantize_rows_int8(q)
+        return (q8[:, None, :].float() * rows.float()).sum(-1) * scales * qs[:, None]
+    q16 = q.bfloat16().float()[:, None, :]
+    if kernel == "fused_topk":
+        return (q16 * rows.bfloat16().float()).sum(-1)
+    return (q16 * rows.float()).sum(-1) * scales
+
+
+def shard_bank_check(label: str, name: str, kernel: str, index, q) -> float:
+    """Shard 0's bank at the sharded search's call parameters against its
+    plain version (K2 and K4 bit-equal, K1 and K3 by compare_bank's rule).
+    Returns the max abs error."""
+    import torch
+
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    buf, count = index.bufs[0], index.counts[0]
+    scales = None if index.scales is None else index.scales[0]
+    err, what = 0.0, "bit_equal=True"
+    if kernel == "fused_topk_int8q":
+        q8, _ = ft.quantize_rows_int8(q)
+        bank = ft.fused_score_bank_int8q_cuda(buf, scales, q8, count, banks=4)
+        plain = ft.int8q_bank_reference(buf, scales, q8, count, banks=4)
+        bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"{name} shard 0")
+    elif kernel == "fused_topk_int4q":
+        kw = dict(banks=8, deferred=q.shape[0] <= 64)
+        bit_equal(list(ft.int4q_candidates_cuda(buf, scales, q, count, **kw)),
+                  list(ft.int4q_candidates_reference(buf, scales, q, count, **kw)),
+                  f"{name} shard 0")
+    else:
+        q16 = q.bfloat16().float()
+        if kernel == "fused_topk":
+            bank = ft.fused_score_bank_cuda(buf, q, count, banks=8)
+            plain = ft._fold_bank(ft.scores_f32(q, buf[:count].T, False), None, 1024, False)
+
+            def score_of(qi, rows):
+                return (q16[qi] * buf[rows].bfloat16().float()).sum(1)
+        else:
+            bank = ft.fused_score_bank_int8_cuda(buf, scales, q, count, banks=8)
+            plain = ft.int8_bank_reference(buf, scales, q, count, banks=8)
+
+            def score_of(qi, rows):
+                return (q16[qi] * buf[rows].float()).sum(1) * scales[rows]
+        torch.cuda.synchronize()
+        err, n_diff = compare_bank(bank, plain, score_of)
+        what = f"max_abs_err={err:.3e} slot_idx_diff={n_diff}"
+    print(f"[{label}] phase5 {name} shard 0 of {SHARDS} ({count} rows) {kernel} bank Q="
+          f"{q.shape[0]} vs plain: {what}", flush=True)
+    return err
+
+
+def phase5(label: str, seed: int, work: str, flat: dict, ivf10m: dict) -> tuple[dict, dict]:
+    """The sharded tiers, four shards on the card: ShardedFlatIndex on
+    phase 3's rows in each of K1-K4's tiers, ShardedIVFIndex at the 10M
+    configuration built from phase 4's device codes, and the HTTP server on
+    a `tpu+mesh://` int8 store. Returns (each kernel's launches on this
+    path, its worst shard-bank error)."""
+    import numpy as np
+    import torch
+
+    from memex_tpu_torch.index.sharded import ShardedFlatIndex
+    from memex_tpu_torch.index.sharded_ivf import ShardedIVFIndex, _shard_mask
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.ops import ivf_batch as ib
+
+    dev = torch.device("cuda")
+    devices = [dev] * SHARDS
+    launches = dict.fromkeys(ft.LAUNCHES, 0)
+    errs: dict[str, float] = {}
+    base_np, q_np, oracle, src = flat["rows"], flat["queries"], flat["oracle"], flat["src"]
+    q = torch.from_numpy(q_np).to(dev)
+    ids = [f"r{i}" for i in range(N_ROWS)]
+    for name, opts, kernel, bar in (t for t in TIERS if t[0] in SHARDED_TIERS):
+        t0 = time.perf_counter()
+        index = ShardedFlatIndex(DIM, devices, capacity_per_shard=N_ROWS // SHARDS, **opts)
+        index.add(base_np, ids)
+        torch.cuda.synchronize()
+        print(f"[{label}] phase5 {name} ShardedFlatIndex shards={SHARDS} cap={index.cap} "
+              f"counts={index.counts} bulk load seconds={time.perf_counter() - t0:.3f}",
+              flush=True)
+        ft.reset_launches()
+        hits = index.search(q_np, 10)
+        n = ft.LAUNCHES[kernel]
+        check(n == SHARDS, f"sharded {name}: one search launched {kernel} {n}x, not {SHARDS}")
+        launches[kernel] += n
+        rows = hit_rows(index, hits)
+        stored = torch.from_numpy(index._sh_rows[rows]).to(dev)
+        scales = (torch.from_numpy(index._sh_scales[rows]).to(dev)
+                  if index._sh_scales is not None else None)
+        got = torch.tensor([[v for _, v in h] for h in hits], device=dev)
+        score_err = (got - tier_scores(kernel, q, stored, scales)).abs().max().item()
+        top1 = np.mean([h[0][0] == f"r{s}" for h, s in zip(hits, src)])
+        recall = np.mean([len({x for x, _ in h} & {f"r{int(j)}" for j in o}) / 10
+                          for h, o in zip(hits, oracle)])
+        overlap = np.mean([len({x for x, _ in h} & {x for x, _ in u}) / 10
+                           for h, u in zip(hits, flat["hits"][name])])
+        print(f"[{label}] phase5 {name} ShardedFlatIndex.search Q=128 {kernel}_launches={n} "
+              f"hit_score_max_abs_err={score_err:.3e} source_row_first={top1:.4f} "
+              f"recall_at_10_vs_f32_oracle={recall:.4f} overlap_at_10_with_FlatIndex="
+              f"{overlap:.4f} (bar {bar})", flush=True)
+        check(score_err <= SCORE_TOL, f"sharded {name}: hit scores {score_err:.3e} off")
+        check(top1 >= 0.99, f"sharded {name}: source row first for only {top1:.4f}")
+        check(recall >= bar, f"sharded {name}: recall@10 {recall:.4f} < {bar}")
+        check(overlap >= bar, f"sharded {name}: overlap with FlatIndex {overlap:.4f} < {bar}")
+        errs[kernel] = shard_bank_check(label, name, kernel, index, q[:MAIN_Q])
+        for Q in TIMED_Q:
+            ms = search_ms(index, q_np[:Q])
+            print(f"[{label}] phase5 {name} search Q={Q} median_ms sharded={ms:.3f} "
+                  f"unsharded={flat['ms'][name][Q]:.3f}", flush=True)
+        del index, stored
+        torch.cuda.empty_cache()
+
+    # The 10M IVF configuration, its clusters over four shards.
+    codes, scales = ivf10m.pop("codes"), ivf10m.pop("scales")
+    queries = ivf10m["queries"]
+    t0 = time.perf_counter()
+    index = ShardedIVFIndex(DIM, devices, **{k: v for k, v in IVF_10M.items() if k != "dtype"})
+    index.build_device(codes, scales, list(range(N_10M)))
+    torch.cuda.synchronize()
+    del codes, scales
+    torch.cuda.empty_cache()
+    M = index.M
+    print(f"[{label}] phase5 10M ShardedIVFIndex build_device seconds="
+          f"{time.perf_counter() - t0:.3f} shards={SHARDS} C={index.C} Cp={index.Cp} M={M} "
+          f"spill_rows={index.spill.count}", flush=True)
+    q_ivf = queries.cpu().numpy()
+    ft.reset_launches()
+    hits = index.search(q_ivf, IVF_K)
+    n = ft.LAUNCHES["ivf_batch"]
+    check(n == SHARDS, f"sharded 10M IVF: one search launched K5 {n}x, not {SHARDS}")
+    launches["ivf_batch"] += n
+    launches["fused_topk_int8q"] += ft.LAUNCHES["fused_topk_int8q"]  # the spill's, if any
+    rec = recall_at_k(hits, ivf10m["oracle"])
+    print(f"[{label}] phase5 10M ShardedIVFIndex.search Q=128 ivf_batch_launches={n} "
+          f"recall_at_10_vs_f32_oracle={rec:.4f} (bar 0.93)", flush=True)
+    check(rec >= 0.93, f"sharded 10M IVF: recall@10 {rec:.4f} < 0.93")
+    # Shard 0's K5 bank at its own masked probes, against the plain version.
+    q = queries[:MAIN_Q].contiguous()
+    mask = _shard_mask(index._cent[0], q, index.nprobe, None, 0, index.Cp)
+    order = torch.argsort(torch.where(mask, torch.arange(index.Cp, device=dev),
+                                      index.Cp + torch.arange(index.Cp, device=dev)))
+    nact = mask.sum(dtype=torch.int32).reshape(1)
+    walk, n_chunks = ib._chunk_walk(index.sizes[0], order.to(torch.int32), nact, M, 1024)
+    args = (index.data[0], index.rscales[0], index.sizes[0], walk, n_chunks, q)
+    bank = ib.ivf_batch_bank_cuda(*args, banks=8)
+    plain = ib.ivf_batch_bank_reference(*args, banks=8)
+    torch.cuda.synchronize()
+    flat0, fsc0, q16 = index.data[0].view(-1, DIM), index.rscales[0].view(-1), q.bfloat16().float()
+    err, n_diff = compare_bank(bank, plain, lambda qi, idx: (
+        q16[qi] * flat0[idx].float()).sum(1) * fsc0[idx])
+    errs["ivf_batch"] = err
+    print(f"[{label}] phase5 10M shard 0 of {SHARDS} K5 bank Q={MAIN_Q} union_clusters="
+          f"{int(nact[0])} chunks={int(n_chunks[0])} vs plain: max_abs_err={err:.3e} "
+          f"slot_idx_diff={n_diff}", flush=True)
+    for Q in TIMED_Q:
+        ms = search_ms(index, q_ivf[:Q])
+        print(f"[{label}] phase5 10M search Q={Q} median_ms sharded={ms:.3f} "
+              f"unsharded={ivf10m['ms'][Q]:.3f}", flush=True)
+    del index, bank, plain, flat0, fsc0
+    torch.cuda.empty_cache()
+
+    # The server on a sharded int8 store (one shard a card: one on this machine).
+    launches["fused_topk_int8q"] += phase2(label, seed, work, "vectors_mesh?dtype=int8",
+                                           "fused_topk_int8q", scheme="tpu+mesh")
+    return launches, errs
+
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1149,11 +1378,20 @@ def main(argv: list[str] | None = None) -> int:
                     "ivf_batch": phase2(label, args.seed, work,
                                         "vectors_ivf?n_clusters=16&nprobe=4", "ivf_batch",
                                         scheme="tpu+ivf", n_docs=1200)}
-            launches = phase3(label, args.seed, work)
-            ivf_launches, ivf_stats = phase4(label, args.seed, work)
+            launches, flat = phase3(label, args.seed, work)
+            ivf_launches, ivf_stats, ivf10m = phase4(label, args.seed, work)
             stats.update(ivf_stats)
             launches.update(ivf_launches)
             launches.update(http)
+            # Phase 5 is the sharded tiers' own path: each of K1-K5 must
+            # launch there too. Its launches add to the line's.
+            sharded, errs = phase5(label, args.seed, work, flat, ivf10m)
+            del flat, ivf10m
+            for name in ("fused_topk", "fused_topk_int8q", "fused_topk_int8",
+                         "fused_topk_int4q", "ivf_batch"):
+                check(sharded[name] > 0, f"the sharded path launched {name} 0 times")
+                launches[name] += sharded[name]
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], errs[name])
         finally:
             shutil.rmtree(work, ignore_errors=True)
         for name, n in launches.items():

@@ -550,6 +550,12 @@ class IVFIndex:
             logger.info("ivf device build: folded %d/%d overflow rows into alternate "
                         "buckets (%d remain spilled)", folded, len(sel), self.spill.count)
 
+    def _table_rows(self, cl: np.ndarray, sl: np.ndarray) -> np.ndarray:
+        """Dequantized table rows at (cluster, slot), float32 on the host."""
+        flat = torch.from_numpy(cl * self.data.shape[1] + sl).to(self.device)
+        rows = self.data.reshape(-1, self.dim)[flat].float()
+        return (rows * self.rscales.reshape(-1)[flat][:, None]).cpu().numpy()
+
     def _rowids_host(self) -> np.ndarray | None:
         """Host rowid table; device-built indexes fetch and cache it."""
         if self.rowids is None and self._rowids_dev is not None:
@@ -1217,19 +1223,14 @@ def sample_corpus_queries(index, n: int, seed: int = 0) -> np.ndarray | None:
     rows, re-normalized): real queries land where the corpus is dense."""
     if index.data is None:
         return None
-    sizes = index.sizes.cpu().numpy()
+    sizes = index._sizes_host()
     live = np.nonzero(sizes > 0)[0]
     if live.size == 0:
         return None
     rng = np.random.default_rng(seed)
     cl = rng.choice(live, size=n)
-    M = index.data.shape[1]
     sl = np.floor(rng.random(n) * sizes[cl]).astype(np.int64)
-    flat = torch.from_numpy(cl * M + sl).to(index.data.device)
-    rows = index.data.reshape(-1, index.dim)[flat].float()
-    if index.rscales is not None:
-        rows = rows * index.rscales.reshape(-1)[flat][:, None]
-    q = rows.cpu().numpy()
+    q = index._table_rows(cl, sl)
     mean = getattr(index, "mean", None)
     if mean is not None and np.asarray(mean).any():
         q = q + np.asarray(mean, np.float32)  # codes are centered residuals

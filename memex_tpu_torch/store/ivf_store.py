@@ -29,6 +29,11 @@ class TpuIVFStore(TpuFlatStore):
     unpruned search); recall_target=<floor> calibrates (nprobe,
     prune_margin) jointly."""
 
+    # The spill rule: fold the spill in (then retrain if that is not
+    # enough) past SPILL_ROWS rows, or past a fifth of a corpus of more
+    # than SPILL_MIN_TOTAL rows.
+    SPILL_ROWS, SPILL_MIN_TOTAL = 4096, 1024
+
     def __init__(self, base_dir: str | None, collection: str, dim: int = 384,
                  n_clusters: int = 1024, nprobe: int = 64, *, device: torch.device | str,
                  **kw):
@@ -98,19 +103,22 @@ class TpuIVFStore(TpuFlatStore):
         super().add_vectors(data)
         if getattr(self, "_recovering", False):
             return  # one rebuild at the end of recovery, not per batch
-        # Once the spill outgrows 20% of the corpus (or 4096 rows): fold it
-        # into the existing partitions in place (O(spill)); retrain only
-        # when the buckets cannot absorb it, on the worker when one is
-        # wired, else inline.
-        spill = self.index.spill.count
+        # Past the spill rule: fold the spill into the existing partitions
+        # in place (O(spill)); retrain only when the buckets cannot absorb
+        # it, on the worker when one is wired, else inline.
         total = max(self.index.count, 1)
-        if spill > 4096 or (total > 1024 and spill * 5 > total):
+
+        def over(spill: int) -> bool:
+            return spill > self.SPILL_ROWS or (total > self.SPILL_MIN_TOTAL
+                                               and spill * 5 > total)
+
+        if over(self.index.spill.count):
             folded = 0
             if self.index.dtype == "int8" and self.index.data is not None:
                 with self._lock:
                     folded = self.index.fold_spill()
             left = self.index.spill.count
-            if left > 4096 or (total > 1024 and left * 5 > total):
+            if over(left):
                 if not self.request_maintenance(f"spill growth ({left}/{total})"):
                     logger.info("ivf %s: auto-rebuild (folded=%d spill=%d total=%d)",
                                 self.collection, folded, left, total)

@@ -6,10 +6,12 @@ VECTOR_CONNECTION works unchanged:
   - `tpu://<dir>`      the port's flat store on the runtime's device
   - `tpu+ivf://<dir>`  the port's IVF store on the runtime's device, e.g.
                        `tpu+ivf://./data?n_clusters=1024&nprobe=64&dtype=int8`
+  - `tpu+mesh://<dir>` the flat store sharded over every card of the
+                       runtime's device type, e.g. `tpu+mesh://./data?dtype=int8`
+  - `tpu+ivf+mesh://<dir>` the IVF store with its clusters sharded over them
   - `memory://`        the port's in-memory store
   - `hnsw://<dir>`     memex_tpu's native C++ HNSW store (no JAX in it)
   - `memex+http(s)://` memex_tpu's remote store (no JAX in it)
-The mesh schemes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,11 +23,6 @@ import torch
 
 
 DEFAULT_DIM = 384  # MiniLM-L12 output
-
-_NOT_PORTED = {
-    "tpu+mesh": "ROADMAP.md queue 1 item 12 (sharded tiers)",
-    "tpu+ivf+mesh": "ROADMAP.md queue 1 item 12 (sharded tiers)",
-}
 
 _INT_OPTS = {"capacity", "n_clusters", "nprobe", "M", "ef_construction",
              "ef_search", "capacity_per_shard", "block_n", "rerank"}
@@ -86,9 +83,6 @@ def _build_store(uri: str, collection: str, dim: int, device: torch.device):
             opts[key] = float(val)
         else:
             opts[key] = val
-    if scheme in _NOT_PORTED:
-        raise NotImplementedError(
-            f"vector store scheme {scheme!r} is not ported yet: {_NOT_PORTED[scheme]}")
     if scheme == "tpu":
         from .flat_store import TpuFlatStore
 
@@ -97,6 +91,14 @@ def _build_store(uri: str, collection: str, dim: int, device: torch.device):
         from .ivf_store import TpuIVFStore
 
         return TpuIVFStore(path, collection, dim=dim, device=device, **opts)
+    if scheme == "tpu+mesh":
+        from .mesh_store import TpuMeshStore
+
+        return TpuMeshStore(path, collection, dim=dim, device=device, **opts)
+    if scheme == "tpu+ivf+mesh":
+        from .mesh_store import TpuMeshIVFStore
+
+        return TpuMeshIVFStore(path, collection, dim=dim, device=device, **opts)
     if scheme == "memory":
         from .flat_store import MemoryStore
 

@@ -764,3 +764,154 @@ def test_kmeans_on_the_card_is_a_function_of_its_seed(cuda):
     assert torch.equal(fixed, ivf.cluster_sums(v16, assign, 256, block=1 << 15))
     atomics = torch.zeros((256, D), device=cuda).index_add_(0, assign, v16)
     torch.testing.assert_close(fixed, atomics, rtol=1e-5, atol=1e-5)
+
+
+# -- the sharded tiers: four shards on the card, and across cards ------------
+
+SHARDED_TIERS = [
+    (dict(), "fused_topk"),
+    (dict(dtype="int8"), "fused_topk_int8q"),
+    (dict(dtype="int8", query_quantize=False), "fused_topk_int8"),
+    (dict(dtype="int4"), "fused_topk_int4q"),
+]
+
+
+def _same_near_ties(hg, hc):
+    """Scores within SCORE_TOL place by place; ids may swap only among
+    near-ties."""
+    for a, b in zip(hg, hc, strict=True):
+        np.testing.assert_allclose([v for _, v in a], [v for _, v in b], atol=SCORE_TOL)
+        cpu_score = dict(b)
+        for (sa, va), (sb, _) in zip(a, b):
+            if sa != sb:
+                assert abs(cpu_score.get(sa, b[-1][1]) - va) <= 2 * SCORE_TOL
+
+
+def _overlap(a, b) -> float:
+    return float(np.mean([len({s for s, _ in x} & {s for s, _ in y}) / len(y)
+                          for x, y in zip(a, b, strict=True)]))
+
+
+@pytest.mark.parametrize("tier,kernel", SHARDED_TIERS,
+                         ids=["float32", "int8", "int8-bf16-queries", "int4"])
+def test_sharded_flat_index_on_the_card(cuda, tier, kernel):
+    """Four shards on one card: one launch of the tier's kernel a shard, the
+    hits of the same four shards on the CPU (plain versions), and at
+    least 0.9 of the unsharded index's top 10 with the same top hit (four
+    banks fold differently from one)."""
+    from memex_tpu_torch.index.sharded import ShardedFlatIndex
+
+    rng = np.random.default_rng(0)
+    vecs = rng.standard_normal((20000, D)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    ids = [f"v{i}" for i in range(20000)]
+    gpu = ShardedFlatIndex(D, [cuda] * 4, capacity_per_shard=8192, **tier)
+    cpu = ShardedFlatIndex(D, ["cpu"] * 4, capacity_per_shard=8192, use_fused=True, **tier)
+    one = FlatIndex(D, device=cuda, **tier)
+    assert gpu.use_fused and all(b.is_cuda for b in gpu.bufs)
+    for idx in (gpu, cpu, one):
+        idx.add(vecs, ids)
+        idx.delete(ids[:40])
+    q = vecs[100:132]
+    before = ft.LAUNCHES[kernel]
+    hg = gpu.search(q, 10)
+    assert ft.LAUNCHES[kernel] == before + 4
+    _same_near_ties(hg, cpu.search(q, 10))
+    ho = one.search(q, 10)
+    assert _overlap(hg, ho) >= 0.9
+    assert [h[0][0] for h in hg] == [h[0][0] for h in ho] == [f"v{i}" for i in range(100, 132)]
+
+
+def _sharded_ivf_on_cpu(n_shards: int, refine: bool):
+    """A clustered 40,000-row corpus in a ShardedIVFIndex on n cpu shards
+    (plain K5), 30 rows deleted, no bucket overflow."""
+    from memex_tpu_torch.index.sharded_ivf import ShardedIVFIndex
+
+    rng = np.random.default_rng(1)
+    topics = rng.standard_normal((64, D)).astype(np.float32)
+    topics /= np.linalg.norm(topics, axis=1, keepdims=True)
+    vecs = topics[rng.integers(0, 64, 40000)] + 0.75 / D ** 0.5 * rng.standard_normal(
+        (40000, D)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    ids = [f"v{i}" for i in range(len(vecs))]
+    kw = dict(n_clusters=32, nprobe=6, refine=refine)
+    cpu = ShardedIVFIndex(D, ["cpu"] * n_shards, use_fused=True, **kw)
+    cpu.build(vecs, ids)
+    assert cpu.spill.count == 0
+    cpu.delete(ids[:30])
+    return vecs, ids, kw, cpu
+
+
+def _sharded_ivf_copy(cpu, devices, kw):
+    """The CPU index's tables, shard p on devices[p]."""
+    from memex_tpu_torch.index.sharded_ivf import ShardedIVFIndex
+
+    gpu = ShardedIVFIndex(D, devices, **kw)
+    assert gpu.use_fused
+    names = ["data", "rscales", "sizes", "_rowids_dev"] + (
+        ["resid", "resid_scales"] if kw["refine"] else [])
+    for name in names:
+        setattr(gpu, name, [t.to(d) for t, d in zip(getattr(cpu, name), devices)])
+    gpu._set_centroids(cpu.centroids)
+    gpu._sizes_h, gpu.ids, gpu.mean = cpu._sizes_h, list(cpu.ids), cpu.mean
+    gpu._live, gpu._deleted = set(cpu._live), set(cpu._deleted)
+    return gpu
+
+
+@pytest.mark.parametrize("refine", [False, True], ids=["int8", "refine"])
+def test_sharded_ivf_index_on_the_card(cuda, refine):
+    """Four cluster shards on one card holding the CPU index's tables: one
+    K5 launch a shard and the CPU index's hits (its plain K5); against the
+    unsharded IVFIndex on the same table, at least 0.9 of its top 10."""
+    from memex_tpu_torch.index.ivf import IVFIndex, ivf_state_from_numpy
+
+    vecs, ids, kw, cpu = _sharded_ivf_on_cpu(4, refine)
+    gpu = _sharded_ivf_copy(cpu, [cuda] * 4, kw)
+    q = vecs[100:132]
+    before = ft.LAUNCHES["ivf_batch"]
+    hg = gpu.search(q, 10)
+    assert ft.LAUNCHES["ivf_batch"] == before + 4
+    _same_near_ties(hg, cpu.search(q, 10))
+    one = IVFIndex(D, device=cuda, dtype="int8", **kw)
+    ivf_state_from_numpy(
+        one, centroids=cpu.centroids.numpy(), data=torch.cat(cpu.data).numpy(),
+        rscales=torch.cat(cpu.rscales).numpy(), sizes=cpu._sizes_h,
+        rowids=cpu._rowids_host(), ids=cpu.ids, mean=cpu.mean,
+        resid=torch.cat(cpu.resid).numpy() if refine else None,
+        resid_scales=torch.cat(cpu.resid_scales).numpy() if refine else None)
+    one.delete(ids[:30])
+    assert _overlap(hg, one.search(q, 10)) >= 0.9
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
+def test_sharded_indexes_across_cards(cuda, kind):
+    """One shard on each card (up to four): each shard's tensors on its own
+    card, one launch a shard, the merge on the first card, and the hits of
+    the same shards on the CPU."""
+    from memex_tpu_torch.index.sharded import ShardedFlatIndex
+    from memex_tpu_torch.parallel import local_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    devices = local_mesh(cuda)[:4]
+    if kind == "flat":
+        rng = np.random.default_rng(2)
+        vecs = rng.standard_normal((5000, D)).astype(np.float32)
+        vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+        ids = [f"v{i}" for i in range(5000)]
+        gpu = ShardedFlatIndex(D, devices, dtype="int8")
+        cpu = ShardedFlatIndex(D, ["cpu"] * len(devices), dtype="int8", use_fused=True)
+        for idx in (gpu, cpu):
+            idx.add(vecs, ids)
+        assert [b.device for b in gpu.bufs] == devices
+        kernel = "fused_topk_int8q"
+    else:
+        vecs, ids, kw, cpu = _sharded_ivf_on_cpu(len(devices), refine=True)
+        gpu = _sharded_ivf_copy(cpu, devices, kw)
+        assert [t.device for t in gpu.data] == devices
+        kernel = "ivf_batch"
+    q = vecs[100:132]
+    before = ft.LAUNCHES[kernel]
+    hg = gpu.search(q, 10)
+    assert ft.LAUNCHES[kernel] == before + len(devices)
+    _same_near_ties(hg, cpu.search(q, 10))

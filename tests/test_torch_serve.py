@@ -260,10 +260,19 @@ def test_registry_schemes(tmp_path):
     from memex_tpu_torch.store.flat_store import MemoryStore, TpuFlatStore
 
     from memex_tpu_torch.store.ivf_store import TpuIVFStore
+    from memex_tpu_torch.store.mesh_store import TpuMeshIVFStore, TpuMeshStore
 
-    for scheme in ("tpu+mesh", "tpu+ivf+mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_vector_storage(f"{scheme}://{tmp_path}/x", "c", device="cpu")
+    mesh = registry.get_vector_storage(
+        f"tpu+mesh://{tmp_path}/m?dtype=int8&capacity_per_shard=4096&query_quantize=false",
+        "c", dim=8, device="cpu")
+    assert isinstance(mesh, TpuMeshStore)
+    assert (mesh.index.dtype, mesh.index.cap, mesh.index.query_quantize) == ("int8", 4096, False)
+    mesh_ivf = registry.get_vector_storage(
+        f"tpu+ivf+mesh://{tmp_path}/mi?n_clusters=8&nprobe=3&refine=true&prune_margin=0.2",
+        "c", dim=8, device="cpu")
+    assert isinstance(mesh_ivf, TpuMeshIVFStore)
+    assert (mesh_ivf.index.C, mesh_ivf.index.nprobe, mesh_ivf.index.refine,
+            mesh_ivf.index.prune_margin) == (8, 3, True, 0.2)
     ivf = registry.get_vector_storage(f"tpu+ivf://{tmp_path}/i?n_clusters=8", "c", dim=8,
                                       device="cpu")
     assert isinstance(ivf, TpuIVFStore) and ivf.index.C == 8
