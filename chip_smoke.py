@@ -57,7 +57,25 @@ sharded tiers, failing (non-zero exit, no result line) on any failed phase:
      Q = 32; search times at Q = 1 / 32 / 128 beside the unsharded
      indexes' (FlatIndex.search in phase 3, IVFIndex.search in phase 4);
      then the HTTP server on a `tpu+mesh://` int8 store, its searches
-     running K2 (`/api/stats`).
+     running K2 (`/api/stats`);
+  6. the local LLM (memex_tpu_torch/llm/local/) at full width with seeded
+     random weights drawn on the card: TinyLlama-1.1B geometry in bf16,
+     Llama-2-7B in bf16 and int8, GPT-J-6B in bf16. For each: its first
+     two layers at full width in float32 on the card against the CPU; the
+     bf16 logits against the float32 model's, int8's against the float32
+     model of its stored weights after a check of every code (cosine); 8
+     cached decode steps against one prefill (cosine); greedy streaming
+     against greedy generate (the same tokens); llm_bench.py's
+     prefill_ms, batch_tok_per_s, stream_tok_per_s and first_token_ms at
+     P = 128 and 128 new tokens, each beside its bound (weight and KV
+     bytes a step at 3.35 TB/s), and the device-busy share of one
+     16-token decode_chunk (torch.profiler, after every timing); a chunk
+     run under CUDA's sync-debug mode must not read the card back. Then
+     the HTTP server with LOCAL_LLM_CONFIG on a TinyLlama-1.1B-geometry
+     HF checkpoint (float16 safetensors, bf16 on the card): two
+     concurrent /api/action/ask (random weights: mostly the route's 400
+     "LLM response was not valid JSON") and a Summarize task that must
+     reach Completed. No scan kernel runs in this phase.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
@@ -85,6 +103,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1349,6 +1368,574 @@ def phase5(label: str, seed: int, work: str, flat: dict, ivf10m: dict) -> tuple[
     return launches, errs
 
 
+# -- phase 6 -------------------------------------------------------------------
+# The local LLM (memex_tpu_torch/llm/local/) at the widths memex_tpu ships and
+# benchmarks, with seeded random weights drawn on the card: TinyLlama-1.1B
+# (memex_tpu/benchmarks/llm_bench.py:88-90, GQA 32 over 4), Llama-2-7B
+# (LlamaConfig(), bf16 and int8) and GPT-J-6B (GptJConfig()).
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+LLM_P = 128           # prompt tokens (llm_bench.py's --prompt-len)
+LLM_NEW = 128         # new tokens timed (llm_bench.py's --max-new)
+LLM_GREEDY_NEW = 36   # greedy stream vs generate: the first chunk, two more, a spill
+LLM_CHECK_STEPS = 8   # cached decode steps held against one prefill
+LLM_CUT_LAYERS = 2    # depth of the copy run on the card and on the CPU
+LLM_CUT_T = 16
+# Card vs CPU, float32, two layers at full width. Both sides' float32
+# products agree to ~3e-7 relative (a [16, 4096] x [4096, 11008] matmul
+# against float64 on each), but the KV cache is bf16 even in float32
+# compute (memex_tpu's design), so a key or value an ulp apart on the two
+# sides can round to neighbouring bf16 values (2^-8 relative apart), which
+# moves logits (std ~1.3, |max| ~6) by up to ~1.5e-3 (measured). 1e-2 is
+# loose for that and tight against a fault of masking, rotary, layout or
+# the cache, each of which moves logits by O(0.1-1).
+LLM_CPU_TOL = 1e-2
+# Cosine of each position's logits against float32: bf16 weights and
+# activations round each product's inputs to 8 bits of mantissa. With
+# random weights every layer amplifies a perturbation of its input, so the
+# cosine falls with depth (Llama-2-7B bf16: 0.99987 after one layer,
+# 0.99656 after 32). int8 is held to the float32 model of the weights it
+# stores (its own tree in float32 compute) at bf16's bar, after every code
+# is checked to lie within half a step of its weight; against the original
+# float32 model it only prints, since there the quantization noise itself
+# is amplified (0.99867 after one layer, 0.96262 after 32; the float32
+# model of the dequantized weights reads 0.96621, so it is not the int8
+# path's arithmetic).
+LLM_DTYPE_COS = 0.99
+LLM_DECODE_COS = 0.99   # cached decode against one prefill, per position
+
+
+def llm_models():
+    from memex_tpu_torch.llm.local.gptj import GptJConfig
+    from memex_tpu_torch.llm.local.model import LlamaConfig
+
+    return (
+        ("TinyLlama-1.1B", LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=22,
+                                       num_heads=32, num_kv_heads=4, intermediate_size=5632,
+                                       max_context=2048), ("bfloat16",)),
+        ("Llama-2-7B", LlamaConfig(), ("bfloat16", "int8")),
+        ("GPT-J-6B", GptJConfig(), ("bfloat16",)),
+    )
+
+
+def min_cosine(a, b) -> float:
+    """Smallest per-position cosine of two [T, V] logit tables."""
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1).min().item()
+
+
+def first_layers(params, n: int) -> dict:
+    """Views of the first n layers' weights (int8 leaves keep their form)."""
+    return {k: ({lk: ({"q": lv["q"][:n], "s": lv["s"][:n]} if isinstance(lv, dict) else lv[:n])
+                 for lk, lv in v.items()} if k == "layers" else v)
+            for k, v in params.items()}
+
+
+def prompt_logits(cfg, params, prompt):
+    """[P, V] float32 logits of one prefill over the prompt."""
+    import torch
+
+    from memex_tpu_torch.llm.local.model import init_cache, model_forward
+
+    P = prompt.shape[1]
+    cache = init_cache(cfg, device=prompt.device)
+    logits, _ = model_forward(cfg, params, prompt,
+                              torch.arange(P, device=prompt.device)[None], cache, 0)
+    return logits[0]
+
+
+def card_vs_cpu(label: str, name: str, cfg, params32, prompt) -> float:
+    """(a) The first LLM_CUT_LAYERS layers at full width, float32, a
+    prefill of LLM_CUT_T tokens and one cached decode step, on the card
+    and on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from memex_tpu_torch.llm.local.model import init_cache, model_forward
+
+    cfg2 = dataclasses.replace(cfg, num_layers=LLM_CUT_LAYERS, compute_dtype="float32")
+    cut = first_layers(params32, LLM_CUT_LAYERS)
+    T = LLM_CUT_T
+
+    def run(p, dev):
+        ids = prompt[:, : T + 1].to(dev)
+        cache = init_cache(cfg2, device=dev)
+        lg, cache = model_forward(cfg2, p, ids[:, :T], torch.arange(T, device=dev)[None],
+                                  cache, 0)
+        st, _ = model_forward(cfg2, p, ids[:, T:], torch.full((1, 1), T, device=dev), cache,
+                              torch.full((), T, device=dev))
+        return torch.cat([lg[0], st[0]]).cpu()
+
+    cpu = torch.device("cpu")
+    on_card = run(cut, prompt.device)
+    on_cpu = run({k: ({lk: lv.to(cpu) for lk, lv in v.items()} if isinstance(v, dict)
+                      else v.to(cpu)) for k, v in cut.items()}, cpu)
+    err = (on_card - on_cpu).abs().max().item()
+    print(f"[{label}] phase6 {name} float32 {LLM_CUT_LAYERS}-layer copy card vs cpu "
+          f"T={T}+1 max_abs_err={err:.3e} (tol {LLM_CPU_TOL}) "
+          f"max_abs_logit={on_cpu.abs().max().item():.3f}", flush=True)
+    check(err <= LLM_CPU_TOL, f"{name}: card and CPU logits differ by {err:.3e}")
+    return err
+
+
+def decode_vs_prefill(cfg, params, prompt, full) -> float:
+    """(b) Prefill P - LLM_CHECK_STEPS tokens, then decode the rest one
+    token a step: smallest cosine against one prefill's logits."""
+    import torch
+
+    from memex_tpu_torch.llm.local.model import init_cache, model_forward
+
+    dev = prompt.device
+    P = prompt.shape[1]
+    S = P - LLM_CHECK_STEPS
+    cache = init_cache(cfg, device=dev)
+    _, cache = model_forward(cfg, params, prompt[:, :S], torch.arange(S, device=dev)[None],
+                             cache, 0)
+    steps = []
+    for t in range(S, P):
+        lg, cache = model_forward(cfg, params, prompt[:, t:t + 1],
+                                  torch.full((1, 1), t, device=dev), cache,
+                                  torch.full((), t, device=dev))
+        steps.append(lg[0, 0])
+    return min_cosine(torch.stack(steps), full[S:])
+
+
+def check_codes(params32, params8) -> int:
+    """Every int8 code times its scale lies within half a step (s / 2) of
+    the float32 weight it codes, give or take the float32 rounding of w / s
+    and q * s (a few ulps of w): per out-channel for the products, per row
+    for the embedding. Checked a layer at a time; returns the count."""
+    import torch
+
+    def within(w, q, s):
+        err = (q.to(torch.float32) * s - w).abs()
+        check(bool((err <= s * 0.5 + w.abs() * 2.0 ** -21).all()),
+              "an int8 code is off its weight")
+        return w.numel()
+
+    n = 0
+    for k, v in params8.items():
+        if k == "layers":
+            for lk, lv in v.items():
+                if isinstance(lv, dict):
+                    for i in range(lv["q"].shape[0]):
+                        n += within(params32[k][lk][i], lv["q"][i], lv["s"][i][None, :])
+        elif isinstance(v, dict):
+            n += within(params32[k], v["q"], v["s"][:, None] if k == "embed" else v["s"][None, :])
+    return n
+
+
+def step_bytes(cfg, params) -> tuple[int, int]:
+    """(weight bytes, KV bytes) one decode step reads: every weight once
+    (one row of the embedding), and the whole static cache, K and V."""
+    def leaves(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict) and k != "embed":
+                yield from leaves(v)
+            else:
+                yield k, v
+
+    weights = 0
+    for k, v in leaves(params):
+        if k == "embed":   # a gather of one row
+            parts = v.values() if isinstance(v, dict) else [v]
+            weights += sum(p[0].numel() * p.element_size() for p in parts)
+        else:
+            weights += v.numel() * v.element_size()
+    kv = 2 * cfg.num_layers * cfg.max_context * cfg.num_kv_heads * cfg.head_dim * 2
+    return weights, kv
+
+
+def matmul_params(params) -> int:
+    """Weights that multiply activations (the embedding gather does not)."""
+    from memex_tpu_torch.llm.local.model import _MATMUL_KEYS
+
+    def count(tree):
+        n = 0
+        for k, v in tree.items():
+            if k in _MATMUL_KEYS:
+                n += (v["q"] if isinstance(v, dict) else v).numel()
+            elif k == "layers":
+                n += count(v)
+        return n
+
+    return count(params)
+
+
+class _NoEos:
+    """A tokenizer with no end token: timed decodes run every step."""
+
+    eos_id = -1
+
+
+def stream_times(llm, prompt, max_new: int) -> dict:
+    """llm_bench.py's stream_decode_bench on the port: a timed prefill (read
+    back), then chunks enqueued one ahead of the read of the last, through
+    LocalLLM._enqueue (pinned copy + event). First token: prefill + the
+    first chunk's read."""
+    from memex_tpu_torch.llm.local.model import prefill
+
+    P = prompt.shape[1]
+    t0 = time.perf_counter()
+    carry = prefill(llm.cfg, llm.params, prompt, P, llm.sampler)
+    carry[1][:1].tolist()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n, first = 0, None
+    pending = llm._enqueue(carry, llm.FIRST_CHUNK)
+    dispatched = llm.FIRST_CHUNK
+    while n < max_new:
+        carry, host, ready = pending
+        if dispatched < max_new:
+            pending = llm._enqueue(carry, llm.STREAM_CHUNK)
+            dispatched += llm.STREAM_CHUNK
+        if ready is not None:
+            ready.synchronize()
+        n += len(host.tolist()[0])
+        if first is None:
+            first = time.perf_counter() - t0
+    stream_s = time.perf_counter() - t0
+    return {"prefill_s": prefill_s, "stream_s": stream_s, "n": n, "first_s": first}
+
+
+def device_busy(fn) -> tuple[float, float, int]:
+    """(device ms, wall ms, kernels) of fn(): the union of the kernels'
+    intervals in a torch.profiler trace of one call and their count, and
+    the host clock of another call without the profiler, both ending in a
+    synchronize. Device ms is NaN where the trace shows no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return (busy / 1e3 if spans else float("nan")), wall, len(spans)
+
+
+def llm_times(label: str, name: str, dtype: str, cfg, params, prompt, seed: int) -> dict:
+    """(d) greedy stream == greedy batch, then (e) llm_bench's times with
+    the default sampler and no end token, each beside its bound."""
+    import torch
+
+    from memex_tpu_torch.llm.local.model import SamplerConfig, decode_chunk, generate, prefill
+    from memex_tpu_torch.llm.local.runtime import ByteTokenizer, LocalLLM
+
+    dev = prompt.device
+    P = prompt.shape[1]
+    greedy = LocalLLM(cfg, params, ByteTokenizer(), SamplerConfig(temperature=0.0),
+                      seed=seed, device=dev)
+    toks, n_valid = generate(cfg, params, prompt, P, greedy.sampler, LLM_GREEDY_NEW,
+                             greedy._gen, eos_id=ByteTokenizer.eos_id)
+    batch = toks.tolist()[: int(n_valid)]
+    streamed = greedy._stream(prompt, P, LLM_GREEDY_NEW, lambda s: None)
+    check(streamed == batch, f"{name} {dtype}: greedy stream gave other tokens than generate")
+
+    llm = LocalLLM(cfg, params, _NoEos(), SamplerConfig(), seed=seed, device=dev)
+    prefill_ms = cuda_ms(lambda: prefill(cfg, params, prompt, P, llm.sampler), runs=10)
+
+    def batch_once() -> float:
+        t0 = time.perf_counter()
+        out, _ = generate(cfg, params, prompt, P, llm.sampler, LLM_NEW, llm._gen, eos_id=-1)
+        out.tolist()
+        return time.perf_counter() - t0
+
+    # Best of 3, as llm_bench.py (the greedy runs above warmed the path).
+    batch_s = min(batch_once() for _ in range(3))
+    st = stream_times(llm, prompt, LLM_NEW)
+    # A decode step may not read the card back (it would stall the
+    # lookahead): one chunk under CUDA's sync-debug mode raises if it does.
+    carry = prefill(cfg, params, prompt, P, llm.sampler)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_chunk(cfg, params, carry, llm.sampler, llm.STREAM_CHUNK, llm._gen, eos_id=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    w_bytes, kv_bytes = step_bytes(cfg, params)
+    bound_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    prefill_bound = max(w_bytes / HBM_BYTES_PER_S,
+                        2 * matmul_params(params) * P / BF16_OPS_PER_S) * 1e3
+    out = {
+        "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound,
+        "batch_tok_per_s": LLM_NEW / batch_s,
+        "stream_tok_per_s": st["n"] / st["stream_s"],
+        "first_token_ms": (st["prefill_s"] + st["first_s"]) * 1e3,
+        "bound_ms_per_token": bound_ms, "bound_tok_per_s": 1e3 / bound_ms,
+    }
+    print(f"[{label}] phase6 {name} {dtype} greedy stream == generate ({len(batch)} tokens); "
+          f"no read-back in a chunk (sync-debug); P={P} new={LLM_NEW} "
+          f"prefill_ms={prefill_ms:.3f} (bound {prefill_bound:.3f}) "
+          f"batch_tok_per_s={out['batch_tok_per_s']:.2f} "
+          f"stream_tok_per_s={out['stream_tok_per_s']:.2f} "
+          f"first_token_ms={out['first_token_ms']:.3f} bound_ms_per_token={bound_ms:.3f} "
+          f"(weights {w_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB a step at 3.35 TB/s; "
+          f"{out['bound_tok_per_s']:.1f} tok/s)", flush=True)
+    return out
+
+
+def busy_share(label: str, name: str, dtype: str, cfg, params, prompt) -> None:
+    """Device-busy share of one 16-token decode_chunk. Run after every
+    timing of the phase: a torch.profiler session leaves later launches
+    slower on the host for the rest of the process."""
+    import torch
+
+    from memex_tpu_torch.llm.local.model import SamplerConfig, decode_chunk, prefill
+
+    sc = SamplerConfig()
+    gen = torch.Generator(device=prompt.device).manual_seed(0)
+    state = {"carry": prefill(cfg, params, prompt, prompt.shape[1], sc)}
+
+    def chunk():
+        state["carry"], _, _ = decode_chunk(cfg, params, state["carry"], sc, 16, gen,
+                                            eos_id=-1)
+
+    dev_ms, wall_ms, kernels = device_busy(chunk)
+    print(f"[{label}] phase6 {name} {dtype} decode_chunk(16) wall_ms={wall_ms:.3f} "
+          f"device_ms={dev_ms:.3f} busy_share={dev_ms / wall_ms:.3f} kernels={kernels} "
+          f"({kernels / 16:.0f} a step; host us a kernel "
+          f"{wall_ms * 1e3 / max(kernels, 1):.2f})", flush=True)
+
+
+def phase6_model(label: str, seed: int, name: str, cfg, dtypes, device) -> dict:
+    """One configuration: (a) card vs CPU, (c) each serving dtype vs
+    float32, then for each dtype (b) cached decode vs prefill and (d)-(e).
+    Returns {dtype: (params, prompt)} for the busy-share pass."""
+    import dataclasses
+
+    import torch
+
+    from memex_tpu_torch.llm.local.gptj import init_params as gptj_init
+    from memex_tpu_torch.llm.local.model import convert_params, init_params
+
+    t0 = time.perf_counter()
+    family = getattr(cfg, "model_family", "llama")
+    params32 = (gptj_init if family == "gptj" else init_params)(cfg, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompt = torch.randint(3, cfg.vocab_size, (1, LLM_P), generator=gen, device=device)
+    torch.cuda.synchronize()
+    print(f"[{label}] phase6 {name} init float32 on the card seconds="
+          f"{time.perf_counter() - t0:.3f} layers={cfg.num_layers} hidden={cfg.hidden_size} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} ffn={cfg.intermediate_size} "
+          f"vocab={cfg.vocab_size} context={cfg.max_context}", flush=True)
+    card_vs_cpu(label, name, cfg, params32, prompt)
+    full32 = prompt_logits(dataclasses.replace(cfg, compute_dtype="float32"), params32, prompt)
+    served = {}
+    for dtype in dtypes:
+        params = convert_params(params32, dtype)
+        full = prompt_logits(cfg, params, prompt)
+        cos = min_cosine(full, full32)
+        if dtype == "int8":
+            steps = check_codes(params32, params)
+            ref = prompt_logits(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                                prompt)
+            cos_stored, cos_deq = min_cosine(full, ref), min_cosine(ref, full32)
+            del ref
+            # How the quantization noise grows with depth (printed only).
+            depth = []
+            for n in (1, cfg.num_layers // 2):
+                cut = dataclasses.replace(cfg, num_layers=n)
+                depth.append((n, min_cosine(
+                    prompt_logits(cut, first_layers(params, n), prompt),
+                    prompt_logits(dataclasses.replace(cut, compute_dtype="float32"),
+                                  first_layers(params32, n), prompt))))
+            print(f"[{label}] phase6 {name} int8 codes within half a step of their weights "
+                  f"({steps} weights); vs the float32 model of its stored weights "
+                  f"P={LLM_P} min_cosine={cos_stored:.5f} (bar {LLM_DTYPE_COS}); vs the "
+                  f"float32 model min_cosine={cos:.5f} (the float32 model of the stored "
+                  f"weights vs the float32 model {cos_deq:.5f}; int8 vs float32 after "
+                  + ", ".join(f"{n} layers {c:.5f}" for n, c in depth) + ")", flush=True)
+            cos = cos_stored
+        else:
+            print(f"[{label}] phase6 {name} {dtype} vs float32 on the card P={LLM_P} "
+                  f"min_cosine={cos:.5f} (bar {LLM_DTYPE_COS})", flush=True)
+        check(cos >= LLM_DTYPE_COS, f"{name} {dtype} logits: cosine {cos:.5f}")
+        served[dtype] = (params, full)
+    del params32, full32, params, full
+    torch.cuda.empty_cache()
+    for dtype in dtypes:
+        params, full = served[dtype]
+        cos = decode_vs_prefill(cfg, params, prompt, full)
+        print(f"[{label}] phase6 {name} {dtype} prefill {LLM_P - LLM_CHECK_STEPS} + "
+              f"{LLM_CHECK_STEPS} cached decode steps vs one prefill of {LLM_P}: "
+              f"min_cosine={cos:.5f} (bar {LLM_DECODE_COS})", flush=True)
+        check(cos >= LLM_DECODE_COS, f"{name} {dtype}: cached decode cosine {cos:.5f}")
+        llm_times(label, name, dtype, cfg, params, prompt, seed)
+        served[dtype] = (params, prompt)
+        del params, full
+        torch.cuda.empty_cache()
+    return served
+
+
+def write_llama_checkpoint(model_dir: str, cfg, seed: int, device: str) -> None:
+    """An HF-format llama checkpoint of `cfg` (float16 safetensors and a
+    config.json) from init_params' seeded weights."""
+    import torch
+    from safetensors.numpy import save_file
+
+    from memex_tpu_torch.llm.local.model import _HF, init_params
+
+    params = init_params(cfg, seed=seed, device=device)
+
+    def host(t):
+        return t.to(torch.float16).contiguous().cpu().numpy()
+
+    tensors = {"model.embed_tokens.weight": host(params["embed"]),
+               "model.norm.weight": host(params["final_norm"]),
+               "lm_head.weight": host(params["lm_head"].T)}
+    for ours, (hf, transpose) in _HF.items():
+        for i, w in enumerate(params["layers"][ours]):
+            tensors[f"model.layers.{i}.{hf}"] = host(w.T if transpose else w)
+    os.makedirs(model_dir, exist_ok=True)
+    save_file(tensors, os.path.join(model_dir, "model.safetensors"))
+    with open(os.path.join(model_dir, "config.json"), "w") as fh:
+        json.dump({"model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "max_position_embeddings": cfg.max_context, "rope_theta": cfg.rope_theta,
+                   "rms_norm_eps": cfg.rms_eps}, fh)
+
+
+def http_error(method: str, url: str, body: dict, timeout: float) -> tuple[int, dict]:
+    try:
+        return 200, http(method, url, body, timeout=timeout)
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def phase6_http(label: str, seed: int, work: str, device: str = "cuda") -> None:
+    """The server with LOCAL_LLM_CONFIG on a TinyLlama-1.1B-geometry HF
+    checkpoint (bf16 weights on the card): two concurrent asks and a
+    Summarize task run by the worker. A random-weight answer is mostly
+    not JSON (the route's 400 "LLM response was not valid JSON"), but a
+    few sampled bytes can be (a lone digit came back once): either reply
+    shows the model ran to the end."""
+    import torch
+
+    cfg = llm_models()[0][1]
+    ckpt = os.path.join(work, "tinyllama")
+    t0 = time.perf_counter()
+    write_llama_checkpoint(ckpt, cfg, seed, device)
+    torch.cuda.empty_cache()
+    size = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+    print(f"[{label}] phase6 http TinyLlama-1.1B float16 checkpoint bytes={size} "
+          f"seconds={time.perf_counter() - t0:.3f}", flush=True)
+    toml = os.path.join(work, "llm.toml")
+    with open(toml, "w") as fh:
+        fh.write(f'[model]\npath = "{ckpt}"\nname = "tinyllama-1.1b-random"\n'
+                 'param_dtype = "bfloat16"\n')
+    model_dir = os.path.join(work, "model")
+    if not os.path.exists(model_dir):
+        write_checkpoint(model_dir, seed)
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if k not in ("MEMEX_FAKE_LLM", "OPENAI_API_KEY")}
+    env.update(EMBEDDING_MODEL=model_dir, LOCAL_LLM_CONFIG=toml,
+               DATABASE_CONNECTION=f"sqlite://{work}/llm.db",
+               VECTOR_CONNECTION=f"tpu://{work}/vectors_llm", HOST="127.0.0.1", PORT=str(port),
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    log_path = os.path.join(work, "server_llm.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
+             "--device", device], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            check(proc.poll() is None, f"server exited with {proc.returncode}")
+            try:
+                http("GET", f"{base}/api/health", timeout=5)
+                break
+            except OSError:
+                check(time.monotonic() < deadline, "server did not come up in 300s")
+                time.sleep(0.5)
+        text = " ".join(make_docs(random.Random(seed), 3))
+
+        def ask(i: int) -> tuple[float, int, dict]:
+            t = time.perf_counter()
+            status, body = http_error("POST", f"{base}/api/action/ask",
+                                      {"text": text, "query": f"question {i}?"}, timeout=900)
+            return time.perf_counter() - t, status, body
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            asks = list(pool.map(ask, range(2)))
+        kinds = []
+        for secs, status, body in asks:
+            if status == 200 and "jsonResponse" in body.get("result", {}):
+                kinds.append("200 jsonResponse")
+            else:
+                check(status == 400 and "LLM response was not valid JSON" in json.dumps(body),
+                      f"ask gave {status} {json.dumps(body)[:200]}")
+                kinds.append("400 not valid JSON")
+        print(f"[{label}] phase6 http two concurrent asks: {kinds}; seconds per request "
+              f"{[round(a[0], 3) for a in asks]} (the model loads in the first) "
+              f"wall={time.perf_counter() - t0:.3f}", flush=True)
+        t0 = time.perf_counter()
+        tid = http("POST", f"{base}/api/action/summarize/task", {"text": text})["result"]["taskId"]
+        while True:
+            res = http("GET", f"{base}/api/tasks/{tid}")["result"]
+            check(res["status"] != "Failed", f"summarize task failed: {res}")
+            if res["status"] == "Completed":
+                break
+            check(time.perf_counter() - t0 < 900, "summarize task unfinished after 900s")
+            time.sleep(0.1)
+        out = res.get("result")
+        out = json.loads(out) if isinstance(out, str) else out
+        check(isinstance(out, dict) and isinstance(out.get("summary"), str),
+              f"summarize task result {out!r}")
+        print(f"[{label}] phase6 http summarize task Completed seconds="
+              f"{time.perf_counter() - t0:.3f} summary_chars={len(out['summary'])}", flush=True)
+    except BaseException:
+        with open(log_path) as fh:
+            sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
+        raise
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def phase6(label: str, seed: int, work: str) -> None:
+    """The local LLM on the card: each configuration in process, then the
+    HTTP server with LOCAL_LLM_CONFIG."""
+    import torch
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    print(f"[{label}] phase6 start allocated_gb={torch.cuda.memory_allocated() / 1e9:.3f}",
+          flush=True)
+    models = []
+    for name, cfg, dtypes in llm_models():
+        served = phase6_model(label, seed, name, cfg, dtypes, dev)
+        models += [(name, dtype, cfg, *served[dtype]) for dtype in dtypes]
+        del served
+        torch.cuda.empty_cache()
+    # The served models (35 GB in all) stay on the card for this pass.
+    for model in models:
+        busy_share(label, *model)
+    del models, model
+    torch.cuda.empty_cache()
+    phase6_http(label, seed, work)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1392,6 +1979,9 @@ def main(argv: list[str] | None = None) -> int:
                 check(sharded[name] > 0, f"the sharded path launched {name} 0 times")
                 launches[name] += sharded[name]
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], errs[name])
+            # Phase 6, the local LLM, last: no scan kernel runs there, and
+            # its 7B models need the card's memory to themselves.
+            phase6(label, args.seed, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         for name, n in launches.items():

@@ -9,7 +9,8 @@ Parity with the reference's llm module (lib/libmemex/src/llm/):
     json-schema extraction (llm/prompter.rs)
   - `fake`: deterministic offline LLM (enables hermetic action tests; the
     reference has no offline path — its tests are #[ignore]d, SURVEY.md §4)
-  - `local`: not ported yet; `get_llm` raises for LOCAL_LLM_CONFIG
+  - `local`: the Llama and GPT-J decoders in PyTorch, on the runtime's
+    device (reference llm/local/, GGML there), selected by LOCAL_LLM_CONFIG
 """
 
 from .base import ChatMessage, ChatRole, LLMError, get_llm

@@ -84,12 +84,11 @@ def budget_truncate(text: str, max_tokens: int) -> str:
     return " ".join(words[:lo])
 
 
-def get_llm(settings: Settings | None = None) -> LLM:
+def get_llm(settings: Settings | None = None, device="cuda") -> LLM:
     """Client selection (reference lib/api/src/lib.rs:94-103):
     MEMEX_FAKE_LLM=1 -> deterministic fake (hermetic envs);
     OPENAI_API_KEY -> OpenAI client;
-    LOCAL_LLM_CONFIG -> the local model, which this package does not have
-    yet: raises;
+    LOCAL_LLM_CONFIG -> the local PyTorch model on `device`;
     else -> fake with a warning.
     """
     settings = settings or Settings.from_env()
@@ -102,10 +101,9 @@ def get_llm(settings: Settings | None = None) -> LLM:
 
         return OpenAIClient(settings.openai_api_key, base_url=settings.openai_base_url)
     if settings.local_llm_config:
-        raise RuntimeError(
-            "LOCAL_LLM_CONFIG selects the local LLM, which the PyTorch port "
-            "does not have yet (ROADMAP.md queue 1 item 13); unset it, or set "
-            "OPENAI_API_KEY or MEMEX_FAKE_LLM=1")
+        from .local import LocalLLM
+
+        return LocalLLM.from_config(settings.local_llm_config, device=device)
     from ..log import get_logger
 
     get_logger(__name__).warning(

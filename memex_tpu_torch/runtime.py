@@ -69,7 +69,7 @@ class TorchRuntime:
             if self._llm is None:
                 from .llm.base import get_llm
 
-                self._llm = get_llm(self.settings)
+                self._llm = get_llm(self.settings, device=self.device)
             return self._llm
 
     @property

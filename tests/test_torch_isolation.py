@@ -53,7 +53,7 @@ def test_the_import_scan_sees_nested_imports():
 
 
 _SERVE = textwrap.dedent("""
-    import json, os, signal, sys, threading, time, urllib.request
+    import json, os, signal, sys, threading, time, urllib.error, urllib.request
     sys.path.insert(0, sys.argv[1])
     port, docs = int(sys.argv[2]), json.loads(sys.argv[3])
     from memex_tpu_torch import __main__ as cli
@@ -87,6 +87,11 @@ _SERVE = textwrap.dedent("""
             out["first"] = [http("POST", "/api/collections/c/search",
                                  {"query": d, "limit": 2})["result"]["results"][0]["content"]
                             for d in docs]
+            try:  # the tiny local LLM (LOCAL_LLM_CONFIG) answers: 400 unless its text is JSON
+                out["ask"] = [200, http("POST", "/api/action/ask",
+                                        {"text": docs[0], "query": "what?"})]
+            except urllib.error.HTTPError as err:
+                out["ask"] = [err.code, json.loads(err.read())]
         except Exception as exc:
             out["error"] = repr(exc)
         finally:
@@ -104,7 +109,8 @@ _SERVE = textwrap.dedent("""
 def test_serving_through_the_port_loads_neither_package(tmp_path):
     """`python -m memex_tpu_torch serve --device cpu`'s main() in a fresh
     interpreter: two documents ingested by the worker, each searched over
-    HTTP and found first; then neither memex_tpu nor jax is loaded."""
+    HTTP and found first, and an ask answered by the tiny local LLM
+    (LOCAL_LLM_CONFIG); then neither memex_tpu nor jax is loaded."""
     from memex_tpu_torch.models.minilm import MiniLM, MiniLMConfig, save_params
     from memex_tpu_torch.text.tokenizer import _build_fallback_vocab
 
@@ -120,7 +126,11 @@ def test_serving_through_the_port_loads_neither_package(tmp_path):
         port = s.getsockname()[1]
     docs = ["alpha beta gamma delta", "the quick brown fox jumps over the lazy dog"]
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(MEMEX_FAKE_LLM="1", EMBEDDING_MODEL=str(model_dir), OMP_NUM_THREADS="2",
+    env.pop("MEMEX_FAKE_LLM", None)
+    env.pop("OPENAI_API_KEY", None)
+    llm_toml = tmp_path / "llm.toml"
+    llm_toml.write_text('[model]\npath = "tiny"\n')
+    env.update(LOCAL_LLM_CONFIG=str(llm_toml), EMBEDDING_MODEL=str(model_dir), OMP_NUM_THREADS="2",
                DATABASE_CONNECTION=f"sqlite://{tmp_path}/memex.db",
                VECTOR_CONNECTION=f"tpu://{tmp_path}/vectors")
     proc = subprocess.run([sys.executable, "-c", _SERVE, str(ROOT), str(port), json.dumps(docs)],
@@ -131,5 +141,7 @@ def test_serving_through_the_port_loads_neither_package(tmp_path):
     assert "error" not in out, (out, proc.stderr[-3000:])
     assert out["rc"] == 0
     assert out["first"] == docs
+    status, body = out["ask"]
+    assert status == 200 or (status == 400 and "not valid JSON" in json.dumps(body)), out["ask"]
     assert out["loaded"] == []
     assert not torch.cuda.is_initialized()

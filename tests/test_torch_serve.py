@@ -289,8 +289,65 @@ def test_registry_schemes(tmp_path):
 
 
 def test_local_llm_config_is_refused(tmp_path, monkeypatch):
+    """A LOCAL_LLM_CONFIG that names no file is refused when the runtime
+    builds its LLM, as in memex_tpu."""
     monkeypatch.delenv("MEMEX_FAKE_LLM", raising=False)
-    s = Settings.from_env(db_uri=f"sqlite://{tmp_path}/t.db", local_llm_config="llm.json")
+    s = Settings.from_env(db_uri=f"sqlite://{tmp_path}/t.db",
+                          local_llm_config=str(tmp_path / "llm.toml"))
     s.openai_api_key = None
-    with pytest.raises(RuntimeError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         TorchRuntime(s, device="cpu").llm
+
+
+def test_local_llm_config_serves_ask_and_summarize(tmp_path, monkeypatch):
+    """LOCAL_LLM_CONFIG gives the port's LocalLLM on the runtime's device;
+    /api/action/ask and a worker Summarize task run through it."""
+    from memex_tpu_torch.llm import prompter
+    from memex_tpu_torch.llm.local import LocalLLM
+
+    monkeypatch.delenv("MEMEX_FAKE_LLM", raising=False)
+    toml = tmp_path / "llm.toml"
+    toml.write_text('[model]\npath = "tiny"\nname = "tiny-local"\n[sampler]\ntemperature = 0.0\n')
+    s = Settings.from_env(db_uri=f"sqlite://{tmp_path}/t.db", local_llm_config=str(toml))
+    s.openai_api_key = None
+    rt = TorchRuntime(s, device="cpu")
+    llm = rt.llm
+    assert isinstance(llm, LocalLLM) and llm.device == rt.device == torch.device("cpu")
+    assert llm.params["embed"].device == rt.device and llm.default_model == "tiny-local"
+    text, query = "alpha beta gamma", "what is first?"
+    content, model = llm.truncate_text(text)
+    answer = llm.chat_completion(model, prompter.quick_question(
+        f"{query}\n\nContent:\n{content}" if content else query))
+    chunks, model = llm.segment_text(text)
+    summary = "\n".join(llm.chat_completion(model, prompter.summarize(c)).strip()
+                        for c in chunks)
+    worker = Worker(rt, poll_interval=0.01)
+
+    async def go(client):
+        resp = await client.post("/api/action/ask", json={"text": text, "query": query})
+        body = await resp.json()
+        try:
+            want = json.loads(answer)
+        except json.JSONDecodeError:
+            assert resp.status == 400 and "not valid JSON" in json.dumps(body)
+        else:
+            assert resp.status == 200 and body["result"]["jsonResponse"] == want
+        resp = await client.post("/api/action/summarize/task", json={"text": text})
+        assert resp.status == 200
+        task_id = (await resp.json())["result"]["taskId"]
+        assert worker.drain(timeout=120)
+        resp = await client.get(f"/api/tasks/{task_id}")
+        return (await resp.json())["result"]
+
+    async def with_client():
+        client = TestClient(TestServer(create_app(rt)))
+        await client.start_server()
+        try:
+            return await go(client)
+        finally:
+            await client.close()
+
+    result = asyncio.new_event_loop().run_until_complete(with_client())
+    assert result["status"] == "Completed"
+    out = result["result"]
+    assert (json.loads(out) if isinstance(out, str) else out) == {"summary": summary}
