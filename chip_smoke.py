@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout and drives
 the ingest-and-search path of every flat tier, the IVF tier and the
-sharded tiers, failing (non-zero exit, no result line) on any failed phase:
+sharded tiers, the local LLM and encoder fine-tuning, failing (non-zero
+exit, no result line) on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
   1. each scan kernel against its plain PyTorch version at the flat
@@ -76,11 +77,26 @@ sharded tiers, failing (non-zero exit, no result line) on any failed phase:
      concurrent /api/action/ask (random weights: mostly the route's 400
      "LLM response was not valid JSON") and a Summarize task that must
      reach Completed. No scan kernel runs in this phase.
+  7. encoder fine-tuning (memex_tpu_torch/train/) at all-MiniLM-L12-v2
+     width on phase 2's checkpoint: `python -m memex_tpu_torch load
+     traincol <dir> --wait` of 96 generated documents (~1,400 adjacent-
+     window pairs), `train traincol --out ft --checkpoint st.npz` and
+     again with `--resume st.npz` (its step must double); in process, on
+     one batch of 32 pairs of 64 tokens: a two-layer copy's step on the
+     card against the CPU (loss, Adam's first moment, params), two runs
+     of two steps from one seed bit-equal, the step over [cuda:0,
+     cuda:0] against one entry, the loss falling over 10 steps on one
+     batch; the step's ms, pairs/s and busy share beside its bound (its
+     float32 operations at 67 TFLOP/s, TF32 off) and its costliest
+     kernels; then the HTTP server on the exported encoder (`ft`, a
+     float32 `tpu://` store, 50 documents, 8 clients), whose searches
+     must launch K1.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
 each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
-searches for K3 and K4, and phase 5's sharded path for K1-K5), errors
+searches for K3 and K4, phase 5's sharded path for K1-K5, and phase 7's
+server on the fine-tuned encoder for K1), errors
 (phase 5's shard banks included) and times at Q = 32: the kernel's, its
 plain version's, its bound (the larger of the bytes it must move at 3.35
 TB/s and its operations at the card's peak for their type, live rows
@@ -458,11 +474,13 @@ def write_checkpoint(model_dir: str, seed: int) -> None:
 
 
 def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: str = "tpu",
-           n_docs: int = 200) -> int:
+           n_docs: int = 200, model: str = "model", clients: int = 32,
+           tag: str = "phase2") -> int:
     """One server run on VECTOR_CONNECTION={scheme}://{work}/{store} with
-    n_docs documents; returns the launches of `kernel` its searches made.
-    An IVF store's searches wait for the Maintain tasks its ingest queued."""
-    model_dir = os.path.join(work, "model")
+    n_docs documents and EMBEDDING_MODEL={work}/{model}; returns the
+    launches of `kernel` its searches (from `clients` clients) made. An
+    IVF store's searches wait for the Maintain tasks its ingest queued."""
+    model_dir = os.path.join(work, model)
     if not os.path.exists(model_dir):
         write_checkpoint(model_dir, seed)
     name = store.split("?")[0]
@@ -481,7 +499,7 @@ def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: st
              "--device", "cuda"], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
     try:
         return _drive_server(f"{label}] [{scheme}://{store}", seed, base, proc, kernel, n_docs,
-                             db_path if scheme == "tpu+ivf" else None)
+                             db_path if scheme == "tpu+ivf" else None, clients, tag)
     except BaseException:
         with open(log_path) as fh:
             sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
@@ -520,7 +538,7 @@ def wait_maintenance(label: str, db_path: str, timeout: float = 300.0) -> None:
 
 
 def _drive_server(label: str, seed: int, base: str, proc, kernel: str, n_docs: int,
-                  maintain_db: str | None) -> int:
+                  maintain_db: str | None, clients: int = 32, tag: str = "phase2") -> int:
     deadline = time.monotonic() + 300
     while True:
         check(proc.poll() is None, f"server exited with {proc.returncode}")
@@ -546,13 +564,13 @@ def _drive_server(label: str, seed: int, base: str, proc, kernel: str, n_docs: i
                 pending.discard(tid)
         time.sleep(0.05)
     ingest_s = time.perf_counter() - t0
-    print(f"[{label}] phase2 ingest docs={len(docs)} seconds={ingest_s:.3f} "
+    print(f"[{label}] {tag} ingest docs={len(docs)} seconds={ingest_s:.3f} "
           f"docs_per_s={len(docs) / ingest_s:.2f}", flush=True)
     if maintain_db:
         wait_maintenance(label, maintain_db)
 
     before = _launches(base, kernel)
-    limit, per_client, clients = 10, 4, 32
+    limit, per_client = 10, 4
     picks = [rng.randrange(len(docs)) for _ in range(per_client * clients)]
 
     def client(c: int) -> list[tuple[float, int, dict]]:
@@ -578,7 +596,7 @@ def _drive_server(label: str, seed: int, base: str, proc, kernel: str, n_docs: i
               f"exact-text query for doc {i} ranked {hits[0]['content'][:40]!r} first")
     launches = after - before
     check(launches > 0, f"the HTTP searches launched the {kernel} kernel 0 times")
-    print(f"[{label}] phase2 search requests={len(runs)} clients={clients} "
+    print(f"[{label}] {tag} search requests={len(runs)} clients={clients} "
           f"qps={len(runs) / wall:.2f} p50_ms={lat[len(lat) // 2]:.3f} "
           f"p99_ms={lat[min(len(lat) - 1, int(len(lat) * 0.99))]:.3f} "
           f"kernel_launches={launches} (server count before searches: {before})", flush=True)
@@ -1600,6 +1618,16 @@ def stream_times(llm, prompt, max_new: int) -> dict:
     return {"prefill_s": prefill_s, "stream_s": stream_s, "n": n, "first_s": first}
 
 
+def device_events(prof) -> list:
+    """The trace's device events, without the ranges that record_function
+    annotations (torch.optim's `Optimizer.step#...`) add to the device
+    timeline: those span the kernels they enclose and the gaps between."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_busy(fn) -> tuple[float, float, int]:
     """(device ms, wall ms, kernels) of fn(): the union of the kernels'
     intervals in a torch.profiler trace of one call and their count, and
@@ -1616,8 +1644,7 @@ def device_busy(fn) -> tuple[float, float, int]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events(prof))
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
@@ -1936,6 +1963,276 @@ def phase6(label: str, seed: int, work: str) -> None:
     phase6_http(label, seed, work)
 
 
+# -- phase 7 -------------------------------------------------------------------
+# Encoder fine-tuning (memex_tpu_torch/train/) at all-MiniLM-L12-v2 width on
+# phase 2's seeded random checkpoint: the CLI's load and train (checkpoint,
+# resume, HF export), the step in process (card vs CPU, repeat runs, two
+# entries of the card, a falling loss), its time beside its bound, then the
+# server on the exported encoder. The fallback vocab is character-level, so
+# a document of ~520 words is ~2,600 tokens: 15 windows of 254 at stride 86.
+TRAIN_DOCS = 96
+TRAIN_WORDS = 520
+TRAIN_B, TRAIN_L = 32, 64   # the CLI's batch and train_encoder's max_len
+TRAIN_CUT_LAYERS = 2        # the card-vs-CPU copy, as phase 6
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores (TF32 off)
+# Card vs CPU and one entry vs two: both sides run the step in float32 and
+# sum the same products in other orders (a few ulps). The loss is held
+# absolutely; the gradient, through Adam's first moment (mu = 0.1 x the
+# clipped gradient), relative to its largest entry; the params within
+# 2.5 lr, since Adam's first update moves each coordinate by at most lr
+# whatever its gradient (a coordinate whose gradient is rounding noise on
+# both sides, such as the attention key bias, may move either way).
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_SPLIT_LOSS_TOL = 1e-5
+TRAIN_MU_REL_TOL = 1e-3
+
+
+def train_docs(rng: random.Random, n: int, words: int) -> list[str]:
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    vocab = ["".join(rng.choice(letters) for _ in range(rng.randint(3, 7)))
+             for _ in range(5000)]
+    return [" ".join([f"doc{i}"] + [rng.choice(vocab) for _ in range(words)])
+            for i in range(n)]
+
+
+def run_cli(label: str, args: list[str], env: dict, cwd: str,
+            timeout: float) -> subprocess.CompletedProcess:
+    """`python -m memex_tpu_torch <args>`. Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "memex_tpu_torch", *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:] + "\n")
+    check(proc.returncode == 0, f"`{' '.join(args)}` exited with {proc.returncode}")
+    print(f"[{label}] phase7 cli `{' '.join(args)}` seconds={time.perf_counter() - t0:.3f}",
+          flush=True)
+    return proc
+
+
+def train_metrics(proc: subprocess.CompletedProcess) -> dict:
+    """train's metrics line, and `epoch_s`: its one epoch's seconds, from
+    its log (a fresh process: the first step's allocations included)."""
+    import re
+
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines), "train printed nothing")
+    m = json.loads(lines[-1])
+    for key in ("loss", "accuracy", "pairs", "step"):
+        check(key in m, f"train's metrics lack {key}: {m}")
+    check(m["loss"] == m["loss"] and abs(m["loss"]) < 1e6, f"train's loss {m['loss']}")
+    epochs = re.findall(r"epoch 0: loss \S+ acc \S+ \(([0-9.]+)s\)", proc.stderr)
+    check(len(epochs) == 1, "train logged no epoch time")
+    return m | {"epoch_s": float(epochs[0])}
+
+
+def train_bound(cfg, rows: int, length: int, n_params: int) -> tuple[float, float, float]:
+    """(bound ms, operations, bytes) of one step on `rows` pairs of `length`
+    tokens: each dense weight does 2 flops a token forward and 4 backward;
+    the attention products (QK^T and PV, 4 L^2 H a sequence and layer)
+    three times over, and the [B, B] logits likewise; the optimizer reads
+    params, grads, mu and nu and writes three of them back."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    dense = cfg.num_layers * (4 * H * H + 2 * H * I)
+    seqs = 2 * rows
+    ops = 6 * dense * seqs * length + 3 * 4 * length * length * H * cfg.num_layers * seqs
+    ops += 3 * 2 * rows * rows * H
+    n_bytes = 7 * 4 * n_params
+    return max(ops / F32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3, ops, n_bytes
+
+
+def step_diff(a, b) -> tuple[float, float, float]:
+    """(largest param difference, largest mu difference, largest |mu|)."""
+    dp = max(float((x.detach().cpu() - y.detach().cpu()).abs().max())
+             for x, y in zip(a["params"].parameters(), b["params"].parameters()))
+    mu_a, mu_b = a["opt"].moments("mu"), b["opt"].moments("mu")
+    dm = max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(mu_a, mu_b))
+    top = max(float(x.abs().max()) for x in mu_a)
+    return dp, dm, top
+
+
+def top_kernels(fn, n: int = 8) -> list[tuple[str, float, int]]:
+    """The n kernels with the most device time in a torch.profiler trace of
+    one call of fn(): (name, ms, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, list] = {}
+    for e in device_events(prof):
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += (e.time_range.end - e.time_range.start) / 1e3
+        acc[1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(name, ms, count) for name, (ms, count) in ranked]
+
+
+def phase7_in_process(label: str, seed: int, work: str, db_path: str) -> None:
+    """(a) card vs CPU, (b) repeat runs, (c) two entries, (d) a falling
+    loss, (e) the step's time and busy share, on one batch of the
+    collection's pairs at full width."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+
+    from memex_tpu_torch.config import Settings
+    from memex_tpu_torch.models.minilm import load_params
+    from memex_tpu_torch.runtime import TorchRuntime
+    from memex_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from memex_tpu_torch.train import TrainConfig, init_train_state, make_train_step
+    from memex_tpu_torch.train.loop import _tokenize_pairs, pairs_from_sql
+
+    dev = torch.device("cuda", 0)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
+    model_dir = os.path.join(work, "model")
+    rt = TorchRuntime(Settings(db_uri=f"sqlite://{db_path}", embedding_model=model_dir),
+                      device=dev)
+    tok = WordPieceTokenizer.from_pretrained_dir(model_dir)
+    pairs = pairs_from_sql(rt, "traincol")
+    sel = np.random.default_rng(seed).permutation(len(pairs))[:TRAIN_B]
+    ids = _tokenize_pairs(types.SimpleNamespace(tokenizer=tok), [pairs[i] for i in sel], TRAIN_L)
+    batch = dict(zip(("q_ids", "q_mask", "d_ids", "d_mask"), ids))
+    cfg, host_model = load_params(model_dir)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    sd = host_model.state_dict()
+    tc = TrainConfig()
+
+    def state_on(device, cut=None, train_cfg=tc):
+        c = cfg if cut is None else dataclasses.replace(cfg, num_layers=cut)
+        keep = {k: v for k, v in sd.items()
+                if cut is None or not k.startswith("layers.") or int(k.split(".")[1]) < cut}
+        return c, init_train_state(c, keep, train_cfg, device=device)
+
+    # (a) card vs CPU, two layers at full width, one step.
+    cut_cfg, cpu_state = state_on("cpu", TRAIN_CUT_LAYERS)
+    _, card_state = state_on(dev, TRAIN_CUT_LAYERS)
+    _, m_cpu = make_train_step(cut_cfg, tc)(cpu_state, batch)
+    _, m_card = make_train_step(cut_cfg, tc)(card_state, batch)
+    dl = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+    dp, dm, top = step_diff(card_state, cpu_state)
+    print(f"[{label}] phase7 {TRAIN_CUT_LAYERS}-layer full-width step card vs cpu "
+          f"B={TRAIN_B} L={TRAIN_L}: loss {float(m_card['loss']):.6f} vs "
+          f"{float(m_cpu['loss']):.6f} diff={dl:.3e} (tol {TRAIN_LOSS_TOL}); max mu diff="
+          f"{dm:.3e} of max |mu| {top:.3e} (rel tol {TRAIN_MU_REL_TOL}); max param diff="
+          f"{dp:.3e} (tol {2.5 * tc.learning_rate:.1e})", flush=True)
+    check(dl <= TRAIN_LOSS_TOL, f"card vs cpu loss diff {dl}")
+    check(dm <= TRAIN_MU_REL_TOL * top, f"card vs cpu mu diff {dm} of {top}")
+    check(dp <= 2.5 * tc.learning_rate, f"card vs cpu param diff {dp}")
+    del cpu_state, card_state
+
+    # (b) two runs from one seed, two steps each: bit-equal.
+    runs = []
+    for _ in range(2):
+        _, st = state_on(dev)
+        step = make_train_step(cfg, tc)
+        losses = [float(step(st, batch)[1]["loss"]) for _ in range(2)]
+        runs.append((st, losses))
+    (a, la), (b, lb) = runs
+    same = la == lb and all(torch.equal(x, y) for x, y in
+                            zip(a["params"].parameters(), b["params"].parameters()))
+    same = same and all(torch.equal(x, y) for key in ("mu", "nu")
+                        for x, y in zip(a["opt"].moments(key), b["opt"].moments(key)))
+    print(f"[{label}] phase7 full-width two runs of two steps from one seed: bit-equal "
+          f"params, mu and nu = {same} (losses {la})", flush=True)
+    check(same, "two training runs from one seed differ")
+    del runs, a, b, st
+
+    # (c) the step over two entries of the card against one entry.
+    _, one = state_on(dev)
+    _, two = state_on(dev)
+    _, m1 = make_train_step(cfg, tc)(one, batch)
+    _, m2 = make_train_step(cfg, tc, [dev, dev])(two, batch)
+    dl = abs(float(m1["loss"]) - float(m2["loss"]))
+    dp, dm, top = step_diff(two, one)
+    print(f"[{label}] phase7 full-width step over [cuda:0, cuda:0] vs [cuda:0]: loss diff="
+          f"{dl:.3e} (tol {TRAIN_SPLIT_LOSS_TOL}); max mu diff={dm:.3e} of {top:.3e}; "
+          f"max param diff={dp:.3e}", flush=True)
+    check(dl <= TRAIN_SPLIT_LOSS_TOL, f"two-entry loss diff {dl}")
+    check(dm <= TRAIN_MU_REL_TOL * top, f"two-entry mu diff {dm} of {top}")
+    check(dp <= 2.5 * tc.learning_rate, f"two-entry param diff {dp}")
+    del one, two
+
+    # (d) the loss on one repeated batch falls over 10 steps.
+    fall_tc = TrainConfig(learning_rate=1e-4)
+    _, st = state_on(dev, train_cfg=fall_tc)
+    step = make_train_step(cfg, fall_tc)
+    losses = [float(step(st, batch)[1]["loss"]) for _ in range(11)]
+    print(f"[{label}] phase7 one batch, lr 1e-4, 11 steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}", flush=True)
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    del st
+
+    # (e) step time at full width, TF32 off, after warmup; busy share last.
+    _, st = state_on(dev)
+    step = make_train_step(cfg, tc)
+    n_params = sum(p.numel() for p in st["params"].parameters())
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(st, batch), runs=20, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bound, ops, n_bytes = train_bound(cfg, TRAIN_B, TRAIN_L, n_params)
+    dev_ms, wall_ms, kernels = device_busy(lambda: step(st, batch))
+    print(f"[{label}] phase7 train step B={TRAIN_B} L={TRAIN_L} layers={cfg.num_layers} "
+          f"float32 (TF32 off) step_ms={ms:.3f} pairs_per_s={TRAIN_B / ms * 1e3:.1f} "
+          f"bound_ms={bound:.3f} (operations {ops:.3e} at 67 TFLOP/s; bytes {n_bytes:.3e} "
+          f"at 3.35 TB/s; params {n_params}) share_of_bound={bound / ms:.3f} "
+          f"bound_pairs_per_s={TRAIN_B / bound * 1e3:.1f} peak_allocated_gb={peak:.3f}; "
+          f"profiled step wall_ms={wall_ms:.3f} device_ms={dev_ms:.3f} "
+          f"busy_share={dev_ms / wall_ms:.3f} kernels={kernels}", flush=True)
+    for name, k_ms, count in top_kernels(lambda: step(st, batch)):
+        print(f"[{label}] phase7 train step kernel ms={k_ms:.3f} launches={count} "
+              f"{name[:110]}", flush=True)
+    del st
+    torch.cuda.empty_cache()
+
+
+def phase7(label: str, seed: int, work: str) -> int:
+    """Encoder fine-tuning through the CLI and in process, then the server
+    on the exported encoder; returns the K1 launches of its searches."""
+    import sqlite3
+
+    model_dir = os.path.join(work, "model")
+    if not os.path.exists(model_dir):
+        write_checkpoint(model_dir, seed)
+    docs_dir = os.path.join(work, "train_docs")
+    os.makedirs(docs_dir)
+    for i, doc in enumerate(train_docs(random.Random(seed), TRAIN_DOCS, TRAIN_WORDS)):
+        with open(os.path.join(docs_dir, f"{i:03d}.txt"), "w") as fh:
+            fh.write(doc)
+    db_path = os.path.join(work, "train.db")
+    env = dict(os.environ, EMBEDDING_MODEL=model_dir, DATABASE_CONNECTION=f"sqlite://{db_path}",
+               VECTOR_CONNECTION=f"tpu://{work}/vectors_train",
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    run_cli(label, ["load", "traincol", docs_dir, "--wait", "--timeout", "300"], env, work, 400)
+    with sqlite3.connect(db_path) as conn:
+        windows, n_docs = conn.execute(
+            "SELECT COUNT(*), COUNT(DISTINCT document_id) FROM embeddings "
+            "WHERE collection = 'traincol'").fetchone()
+    check(n_docs == TRAIN_DOCS, f"{n_docs} of {TRAIN_DOCS} documents ingested")
+    print(f"[{label}] phase7 load: docs={n_docs} windows={windows} "
+          f"adjacent pairs={windows - n_docs}", flush=True)
+
+    ft, ckpt = os.path.join(work, "ft"), os.path.join(work, "st.npz")
+    m1 = train_metrics(run_cli(label, ["train", "traincol", "--out", ft, "--checkpoint", ckpt],
+                               env, work, 300))
+    check(m1["pairs"] == windows - n_docs, f"train saw {m1['pairs']} pairs")
+    check(m1["step"] == m1["pairs"] // TRAIN_B, f"train took {m1['step']} steps")
+    for name in ("model.safetensors", "config.json", "vocab.txt"):
+        check(os.path.exists(os.path.join(ft, name)), f"the export lacks {name}")
+    m2 = train_metrics(run_cli(label, ["train", "traincol", "--resume", ckpt], env, work, 300))
+    check(m2["step"] == 2 * m1["step"], f"resume went from step {m1['step']} to {m2['step']}")
+    print(f"[{label}] phase7 train metrics {json.dumps(m1)}; resumed {json.dumps(m2)}; "
+          f"the epoch's pairs_per_s={m1['step'] * TRAIN_B / m1['epoch_s']:.1f} / "
+          f"{m2['step'] // 2 * TRAIN_B / m2['epoch_s']:.1f}", flush=True)
+
+    phase7_in_process(label, seed, work, db_path)
+    return phase2(label, seed, work, "vectors_ft", "fused_topk", n_docs=50, model="ft",
+                  clients=8, tag="phase7 http (fine-tuned encoder)")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1979,9 +2276,13 @@ def main(argv: list[str] | None = None) -> int:
                 check(sharded[name] > 0, f"the sharded path launched {name} 0 times")
                 launches[name] += sharded[name]
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], errs[name])
-            # Phase 6, the local LLM, last: no scan kernel runs there, and
-            # its 7B models need the card's memory to themselves.
+            # Phase 6, the local LLM: no scan kernel runs there, and its 7B
+            # models need the card's memory to themselves.
             phase6(label, args.seed, work)
+            # Phase 7, encoder fine-tuning; its server's searches run K1.
+            ft = phase7(label, args.seed, work)
+            check(ft > 0, "the fine-tuned encoder's searches launched fused_topk 0 times")
+            launches["fused_topk"] += ft
         finally:
             shutil.rmtree(work, ignore_errors=True)
         for name, n in launches.items():

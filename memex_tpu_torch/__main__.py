@@ -1,13 +1,12 @@
-"""CLI entry point: `python -m memex_tpu_torch serve --roles Api,Worker
-[--device cuda]`.
+"""CLI entry point: `python -m memex_tpu_torch {serve,migrate,train,load,
+download-model}`.
 
-Port of memex_tpu/__main__.py's `serve` without its JAX parts (multi-host
-bring-up, the XLA compile cache, the backend check before warmup). The
+Port of memex_tpu/__main__.py. `serve` drops its JAX parts (multi-host
+bring-up, the XLA compile cache, the backend check before warmup); the
 API server and the worker are the port's copies, driven with a
-TorchRuntime.
-The device defaults to `cuda`, and the command fails when CUDA is not
-available unless `--device cpu` is given: it never moves to the CPU on
-its own.
+TorchRuntime. `serve`, `train` and `load` take `--device`, which defaults
+to `cuda`; they fail when CUDA is not available unless `--device cpu` is
+given: none moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -24,15 +23,24 @@ from .log import get_logger, init_logging
 logger = get_logger("memex_tpu_torch.main")
 
 
-def cmd_serve(args: argparse.Namespace) -> int:
+def _device(args: argparse.Namespace):
+    """The command's torch device, or None (logged) when it asks for CUDA
+    and there is none."""
     import torch
-
-    from .runtime import TorchRuntime
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         logger.error("--device %s requested but CUDA is not available "
-                     "(use --device cpu to serve from the CPU)", args.device)
+                     "(use --device cpu to run %s on the CPU)", args.device, args.command)
+        return None
+    return device
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    from .runtime import TorchRuntime
+
+    device = _device(args)
+    if device is None:
         return 2
     roles = {r.strip().lower() for r in args.roles.split(",") if r.strip()}
     if not roles or not roles <= {"api", "worker"}:
@@ -104,6 +112,121 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_load(args: argparse.Namespace) -> int:
+    """Bulk-enqueue documents from files/dirs (data-loader role)."""
+    import glob
+
+    from .db import queue
+    from .runtime import TorchRuntime
+
+    device = _device(args)
+    if device is None:
+        return 2
+    rt = TorchRuntime(Settings.from_env(), device=device)
+    paths: list[str] = []
+    for p in args.paths:
+        if os.path.isdir(p):
+            paths.extend(sorted(glob.glob(os.path.join(p, "**", "*"), recursive=True)))
+        else:
+            paths.append(p)
+    items = []
+    for p in paths:
+        if not os.path.isfile(p):
+            continue
+        try:
+            with open(p, "r", encoding="utf-8", errors="replace") as fh:
+                content = fh.read()
+        except OSError as exc:
+            logger.warning("skipping %s: %s", p, exc)
+            continue
+        if content.strip():
+            items.append((args.collection, content, queue.TaskType.Ingest))
+    queue.enqueue_many(rt.db, items)
+    logger.info("enqueued %d documents into %r", len(items), args.collection)
+    if args.wait:
+        from .worker import Worker
+
+        worker = Worker(rt)
+        try:
+            if not worker.drain(timeout=args.timeout):
+                logger.error("queue not drained after %.0fs", args.timeout)
+                return 1
+        finally:
+            worker.shutdown()
+    return 0
+
+
+def cmd_download_model(args: argparse.Namespace) -> int:
+    """Fetch model weights into a local dir. Needs network; in air-gapped
+    environments place an HF-format checkpoint (model.safetensors +
+    config.json + vocab.txt) at the target dir by any other means -- the
+    loader (models/minilm.py) only reads local files."""
+    target = args.target or os.path.join("models", args.model.split("/")[-1])
+    needed = ["model.safetensors", "config.json", "vocab.txt"]
+    if all(os.path.exists(os.path.join(target, f)) for f in needed):
+        logger.info("model already present at %s", target)
+        return 0
+    try:
+        from huggingface_hub import snapshot_download
+
+        snapshot_download(
+            repo_id=args.model,
+            local_dir=target,
+            allow_patterns=["*.safetensors", "config.json", "vocab.txt",
+                            "tokenizer_config.json", "special_tokens_map.json"],
+        )
+    except Exception as exc:
+        logger.error(
+            "download failed (%s). If this host has no egress, copy an "
+            "HF-format checkpoint (%s) into %s manually and set "
+            "EMBEDDING_MODEL=%s.", exc, ", ".join(needed), target, target,
+        )
+        return 1
+    missing = [f for f in needed if not os.path.exists(os.path.join(target, f))]
+    if missing:
+        logger.error("snapshot incomplete, missing: %s", missing)
+        return 1
+    logger.info("model ready at %s (set EMBEDDING_MODEL=%s)", target, target)
+    return 0
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    """Fine-tune the encoder on an ingested collection and export the
+    result in HF format (loadable via EMBEDDING_MODEL=<out>); prints the
+    metrics as one JSON line."""
+    import json
+
+    from .runtime import TorchRuntime
+    from .train import TrainConfig, train_encoder
+
+    device = _device(args)
+    if device is None:
+        return 2
+    rt = TorchRuntime(Settings.from_env(), device=device)
+    metrics = train_encoder(
+        rt,
+        args.collection,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        tc=TrainConfig(learning_rate=args.learning_rate),
+        out_dir=args.out,
+        resume=args.resume,
+        checkpoint_path=args.checkpoint,
+    )
+    print(json.dumps(metrics))
+    return 0
+
+
+def cmd_migrate(args: argparse.Namespace) -> int:
+    """Standalone migration runner."""
+    from .db.connection import create_connection_by_uri
+
+    uri = args.database_connection or Settings.from_env().db_uri
+    create_connection_by_uri(uri, run_migrations=True)
+    logger.info("migrations applied to %s", uri)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     load_dotenv()
     init_logging()
@@ -119,6 +242,37 @@ def main(argv: list[str] | None = None) -> int:
     serve.add_argument("--device", default="cuda",
                        help="torch device for the encoder and indexes (default cuda)")
     serve.set_defaults(func=cmd_serve)
+
+    migrate = sub.add_parser("migrate", help="apply schema migrations and exit")
+    migrate.add_argument("--database-connection", default=None)
+    migrate.set_defaults(func=cmd_migrate)
+
+    tr = sub.add_parser("train", help="fine-tune the encoder on a collection")
+    tr.add_argument("collection")
+    tr.add_argument("--epochs", type=int, default=1)
+    tr.add_argument("--batch-size", type=int, default=32)
+    tr.add_argument("--learning-rate", type=float, default=2e-5)
+    tr.add_argument("--out", default=None, help="export dir (HF format)")
+    tr.add_argument("--resume", default=None, help="train-state .npz to resume")
+    tr.add_argument("--checkpoint", default=None, help="train-state .npz to write")
+    tr.add_argument("--device", default="cuda",
+                    help="torch device to train on; every card of its type takes a "
+                         "block of each batch (default cuda)")
+    tr.set_defaults(func=cmd_train)
+
+    dl = sub.add_parser("download-model", help="fetch embedding-model weights")
+    dl.add_argument("--model", default="sentence-transformers/all-MiniLM-L12-v2")
+    dl.add_argument("--target", default=None, help="output dir (default models/<name>)")
+    dl.set_defaults(func=cmd_download_model)
+
+    load = sub.add_parser("load", help="bulk-enqueue documents from files/dirs")
+    load.add_argument("collection")
+    load.add_argument("paths", nargs="+")
+    load.add_argument("--wait", action="store_true", help="run a worker until drained")
+    load.add_argument("--timeout", type=float, default=3600.0)
+    load.add_argument("--device", default="cuda",
+                      help="torch device for the worker's encoder and indexes (default cuda)")
+    load.set_defaults(func=cmd_load)
     args = parser.parse_args(argv)
     return args.func(args)
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import os
+from collections.abc import Mapping
 from dataclasses import dataclass
 
 import numpy as np
@@ -268,3 +269,29 @@ def params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
                 arr = arr.T
             sd[f"layers.{i}.{attr}.{p}"] = arr
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def params_to_numpy(model: "MiniLM | Mapping[str, torch.Tensor]") -> dict:
+    """The inverse of params_from_numpy: a MiniLM (or any mapping with its
+    state-dict names, such as an optimizer moment of each parameter) ->
+    memex_tpu's parameter pytree, float32 numpy leaves, dense weights
+    [in, out]."""
+    sd = model.state_dict() if isinstance(model, MiniLM) else model
+
+    def host(name: str, transpose: bool = False) -> np.ndarray:
+        t = sd[name].detach().float().cpu()
+        return np.ascontiguousarray((t.T if transpose else t).numpy())
+
+    tree = {"embeddings": {
+        "word": host("word.weight"),
+        "position": host("position.weight"),
+        "token_type": host("token_type.weight"),
+        "ln_scale": host("ln.weight"),
+        "ln_bias": host("ln.bias"),
+    }, "layers": []}
+    n_layers = 1 + max((int(k.split(".")[1]) for k in sd if k.startswith("layers.")), default=-1)
+    for i in range(n_layers):
+        tree["layers"].append({
+            leaf: host(f"layers.{i}.{attr}.{p}", p == "weight" and not attr.endswith("ln"))
+            for leaf, (attr, p) in _JAX_LAYER_MAP.items()})
+    return tree
