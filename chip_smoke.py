@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout and drives
 the ingest-and-search path of every flat tier, the IVF tier and the
-sharded tiers, the local LLM and encoder fine-tuning, failing (non-zero
-exit, no result line) on any failed phase:
+sharded tiers (on one controller and on two ranks of a process group), the
+local LLM and encoder fine-tuning, failing (non-zero exit, no result line)
+on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
   1. each scan kernel against its plain PyTorch version at the flat
@@ -61,7 +62,8 @@ exit, no result line) on any failed phase:
      running K2 (`/api/stats`);
   6. the local LLM (memex_tpu_torch/llm/local/) at full width with seeded
      random weights drawn on the card: TinyLlama-1.1B geometry in bf16,
-     Llama-2-7B in bf16 and int8, GPT-J-6B in bf16. For each: its first
+     Llama-2-7B in bf16 and int8, GPT-J-6B in bf16, the two 7B-class
+     models cut to 8 layers (LLM_7B_LAYERS). For each: its first
      two layers at full width in float32 on the card against the CPU; the
      bf16 logits against the float32 model's, int8's against the float32
      model of its stored weights after a check of every code (cosine); 8
@@ -91,13 +93,29 @@ exit, no result line) on any failed phase:
      kernels; then the HTTP server on the exported encoder (`ft`, a
      float32 `tpu://` store, 50 documents, 8 clients), whose searches
      must launch K1.
+  8. multi-host bring-up: two ranks spawned here, joined over gloo
+     (MEMEX_DIST_BACKEND=gloo; NCCL refuses two ranks on one card), each a
+     controller of one shard on the card: ShardedFlatIndex over the
+     process group on phase 3's shape of rows (1,048,576 x 384, made on
+     the card from the seed alike on both ranks) in the float32 (K1), int8
+     (K2), int8-bf16-queries (K3) and int4 (K4) tiers, and ShardedIVFIndex
+     at phase 4's 1M-row configuration in int8 (K5): one launch of the
+     tier's kernel a rank a search, each rank's bank against its plain
+     version, recall@10 at phase 3's and phase 4's bars, hits identical on
+     both ranks and to the single controller over two shards of the card;
+     search times at Q = 1 / 32 / 128 beside the single controller's and
+     the all_gather's; then `serve` on two ranks at full MiniLM-L12 width
+     (`tpu+mesh://`, 50 documents posted to both in lockstep, 16 searches
+     sent to both at once): identical hits, one K1 launch a rank a search,
+     a clean shutdown with each rank's own copy of the same checkpoint. A
+     rank that fails or runs past its time fails the phase.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
 each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
-searches for K3 and K4, phase 5's sharded path for K1-K5, and phase 7's
-server on the fine-tuned encoder for K1), errors
-(phase 5's shard banks included) and times at Q = 32: the kernel's, its
+searches for K3 and K4, phase 5's sharded path for K1-K5, phase 7's
+server on the fine-tuned encoder for K1, and phase 8's two ranks for
+K1-K5), errors (phase 5's and phase 8's shard banks included) and times at Q = 32: the kernel's, its
 plain version's, its bound (the larger of the bytes it must move at 3.35
 TB/s and its operations at the card's peak for their type, live rows
 only) and one PyTorch call computing the same product on operands laid
@@ -108,6 +126,7 @@ queries; the port never calls it).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import random
@@ -1227,27 +1246,28 @@ def tier_scores(kernel: str, q, rows, scales):
     return (q16 * rows.float()).sum(-1) * scales
 
 
-def shard_bank_check(label: str, name: str, kernel: str, index, q) -> float:
-    """Shard 0's bank at the sharded search's call parameters against its
+def shard_bank_check(label: str, name: str, kernel: str, index, q, shard: int = 0,
+                     tag: str = "phase5") -> float:
+    """A shard's bank at the sharded search's call parameters against its
     plain version (K2 and K4 bit-equal, K1 and K3 by compare_bank's rule).
     Returns the max abs error."""
     import torch
 
     from memex_tpu_torch.ops import fused_topk as ft
 
-    buf, count = index.bufs[0], index.counts[0]
-    scales = None if index.scales is None else index.scales[0]
+    buf, count = index.bufs[shard], index.counts[shard]
+    scales = None if index.scales is None else index.scales[shard]
     err, what = 0.0, "bit_equal=True"
     if kernel == "fused_topk_int8q":
         q8, _ = ft.quantize_rows_int8(q)
         bank = ft.fused_score_bank_int8q_cuda(buf, scales, q8, count, banks=4)
         plain = ft.int8q_bank_reference(buf, scales, q8, count, banks=4)
-        bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"{name} shard 0")
+        bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"{name} shard {shard}")
     elif kernel == "fused_topk_int4q":
         kw = dict(banks=8, deferred=q.shape[0] <= 64)
         bit_equal(list(ft.int4q_candidates_cuda(buf, scales, q, count, **kw)),
                   list(ft.int4q_candidates_reference(buf, scales, q, count, **kw)),
-                  f"{name} shard 0")
+                  f"{name} shard {shard}")
     else:
         q16 = q.bfloat16().float()
         if kernel == "fused_topk":
@@ -1265,8 +1285,36 @@ def shard_bank_check(label: str, name: str, kernel: str, index, q) -> float:
         torch.cuda.synchronize()
         err, n_diff = compare_bank(bank, plain, score_of)
         what = f"max_abs_err={err:.3e} slot_idx_diff={n_diff}"
-    print(f"[{label}] phase5 {name} shard 0 of {SHARDS} ({count} rows) {kernel} bank Q="
+    print(f"[{label}] {tag} {name} shard {shard} of {index.P} ({count} rows) {kernel} bank Q="
           f"{q.shape[0]} vs plain: {what}", flush=True)
+    return err
+
+
+def ivf_shard_bank_check(label: str, tag: str, index, q, shard: int = 0) -> float:
+    """A ShardedIVFIndex shard's K5 bank at its own masked probes against
+    its plain version. Returns the max abs error."""
+    import torch
+
+    from memex_tpu_torch.index.sharded_ivf import _shard_mask
+    from memex_tpu_torch.ops import ivf_batch as ib
+
+    dev, Cp, M = q.device, index.Cp, index.M
+    mask = _shard_mask(index._cent[shard], q, index.nprobe, None, shard * Cp, Cp)
+    order = torch.argsort(torch.where(mask, torch.arange(Cp, device=dev),
+                                      Cp + torch.arange(Cp, device=dev)))
+    nact = mask.sum(dtype=torch.int32).reshape(1)
+    walk, n_chunks = ib._chunk_walk(index.sizes[shard], order.to(torch.int32), nact, M, 1024)
+    args = (index.data[shard], index.rscales[shard], index.sizes[shard], walk, n_chunks, q)
+    bank = ib.ivf_batch_bank_cuda(*args, banks=8)
+    plain = ib.ivf_batch_bank_reference(*args, banks=8)
+    torch.cuda.synchronize()
+    flat, fsc = index.data[shard].view(-1, DIM), index.rscales[shard].view(-1)
+    q16 = q.bfloat16().float()
+    err, n_diff = compare_bank(bank, plain, lambda qi, idx: (
+        q16[qi] * flat[idx].float()).sum(1) * fsc[idx])
+    print(f"[{label}] {tag} shard {shard} of {index.P} K5 bank Q={q.shape[0]} union_clusters="
+          f"{int(nact[0])} chunks={int(n_chunks[0])} vs plain: max_abs_err={err:.3e} "
+          f"slot_idx_diff={n_diff}", flush=True)
     return err
 
 
@@ -1280,9 +1328,8 @@ def phase5(label: str, seed: int, work: str, flat: dict, ivf10m: dict) -> tuple[
     import torch
 
     from memex_tpu_torch.index.sharded import ShardedFlatIndex
-    from memex_tpu_torch.index.sharded_ivf import ShardedIVFIndex, _shard_mask
+    from memex_tpu_torch.index.sharded_ivf import ShardedIVFIndex
     from memex_tpu_torch.ops import fused_topk as ft
-    from memex_tpu_torch.ops import ivf_batch as ib
 
     dev = torch.device("cuda")
     devices = [dev] * SHARDS
@@ -1355,29 +1402,13 @@ def phase5(label: str, seed: int, work: str, flat: dict, ivf10m: dict) -> tuple[
     print(f"[{label}] phase5 10M ShardedIVFIndex.search Q=128 ivf_batch_launches={n} "
           f"recall_at_10_vs_f32_oracle={rec:.4f} (bar 0.93)", flush=True)
     check(rec >= 0.93, f"sharded 10M IVF: recall@10 {rec:.4f} < 0.93")
-    # Shard 0's K5 bank at its own masked probes, against the plain version.
-    q = queries[:MAIN_Q].contiguous()
-    mask = _shard_mask(index._cent[0], q, index.nprobe, None, 0, index.Cp)
-    order = torch.argsort(torch.where(mask, torch.arange(index.Cp, device=dev),
-                                      index.Cp + torch.arange(index.Cp, device=dev)))
-    nact = mask.sum(dtype=torch.int32).reshape(1)
-    walk, n_chunks = ib._chunk_walk(index.sizes[0], order.to(torch.int32), nact, M, 1024)
-    args = (index.data[0], index.rscales[0], index.sizes[0], walk, n_chunks, q)
-    bank = ib.ivf_batch_bank_cuda(*args, banks=8)
-    plain = ib.ivf_batch_bank_reference(*args, banks=8)
-    torch.cuda.synchronize()
-    flat0, fsc0, q16 = index.data[0].view(-1, DIM), index.rscales[0].view(-1), q.bfloat16().float()
-    err, n_diff = compare_bank(bank, plain, lambda qi, idx: (
-        q16[qi] * flat0[idx].float()).sum(1) * fsc0[idx])
-    errs["ivf_batch"] = err
-    print(f"[{label}] phase5 10M shard 0 of {SHARDS} K5 bank Q={MAIN_Q} union_clusters="
-          f"{int(nact[0])} chunks={int(n_chunks[0])} vs plain: max_abs_err={err:.3e} "
-          f"slot_idx_diff={n_diff}", flush=True)
+    errs["ivf_batch"] = ivf_shard_bank_check(label, "phase5 10M", index,
+                                             queries[:MAIN_Q].contiguous())
     for Q in TIMED_Q:
         ms = search_ms(index, q_ivf[:Q])
         print(f"[{label}] phase5 10M search Q={Q} median_ms sharded={ms:.3f} "
               f"unsharded={ivf10m['ms'][Q]:.3f}", flush=True)
-    del index, bank, plain, flat0, fsc0
+    del index
     torch.cuda.empty_cache()
 
     # The server on a sharded int8 store (one shard a card: one on this machine).
@@ -1423,6 +1454,12 @@ LLM_DTYPE_COS = 0.99
 LLM_DECODE_COS = 0.99   # cached decode against one prefill, per position
 
 
+# Depth of the 7B-class runs (Llama-2-7B has 32 layers, GPT-J-6B 28): every
+# width is the published one, and every check runs, but the smoke's time
+# budget holds a quarter of their layers. TinyLlama runs at full depth.
+LLM_7B_LAYERS = 8
+
+
 def llm_models():
     from memex_tpu_torch.llm.local.gptj import GptJConfig
     from memex_tpu_torch.llm.local.model import LlamaConfig
@@ -1431,8 +1468,8 @@ def llm_models():
         ("TinyLlama-1.1B", LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=22,
                                        num_heads=32, num_kv_heads=4, intermediate_size=5632,
                                        max_context=2048), ("bfloat16",)),
-        ("Llama-2-7B", LlamaConfig(), ("bfloat16", "int8")),
-        ("GPT-J-6B", GptJConfig(), ("bfloat16",)),
+        ("Llama-2-7B", LlamaConfig(num_layers=LLM_7B_LAYERS), ("bfloat16", "int8")),
+        ("GPT-J-6B", GptJConfig(num_layers=LLM_7B_LAYERS), ("bfloat16",)),
     )
 
 
@@ -2233,12 +2270,354 @@ def phase7(label: str, seed: int, work: str) -> int:
                   clients=8, tag="phase7 http (fine-tuned encoder)")
 
 
+# -- phase 8 -------------------------------------------------------------------
+# Multi-host bring-up (parallel/distributed.py): two ranks, spawned here, each
+# a controller of one shard on the one card, joined over gloo
+# (MEMEX_DIST_BACKEND=gloo: NCCL refuses two ranks on one device). Each rank
+# generates the same rows from the seed, searches its own shard and
+# all_gathers the candidates; rank 0 also runs the single controller over two
+# shards of the card on the same rows, and the hits must be identical.
+RANKS = 2
+RANK_TIMEOUT_S = 600
+IVF_1M_SHARDED = dict(n_clusters=IVF_1M_CLUSTERS, nprobe=64, bucket_factor=1.2)
+SERVE_DOCS, SERVE_SEARCHES = 50, 16
+
+
+def _wire_hits(hits) -> list:
+    return [[[sid if isinstance(sid, str) else int(sid), float(v)] for sid, v in h]
+            for h in hits]
+
+
+def phase8_rank(rank: int, coordinator: str, work: str, seed: int) -> None:
+    """One rank of phase 8 (`chip_smoke.py --phase8-rank R`): the flat tiers
+    of K1-K4 and the 1M-row sharded IVF (K5) over the process group, each
+    search's launches, its shard's bank against its plain version, search
+    times (rank 0 beside the single controller) and the all_gather's; all
+    into {work}/phase8_rank{R}.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from memex_tpu_torch.index.sharded import ShardedFlatIndex
+    from memex_tpu_torch.index.sharded_ivf import ShardedIVFIndex
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.parallel import init_multihost
+    from memex_tpu_torch.parallel.collectives import gather_candidates
+
+    label = f"phase8 rank {rank}"
+    check(init_multihost(coordinator, RANKS, rank, device="cuda"), "init_multihost declined")
+    group = dist.group.WORLD
+    check(dist.get_backend(group) == "gloo", f"backend {dist.get_backend(group)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out: dict = {"flat": {}, "errs": {}}
+
+    # The rows of phase 3's shape, made on the card from the seed alike on
+    # both ranks.
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    base = unit_rows(N_ROWS, DIM, gen, dev)
+    src = torch.randperm(N_ROWS, generator=gen, device=dev)[:128]
+    q = base[src] + 0.05 / DIM ** 0.5 * torch.randn((128, DIM), generator=gen, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    oracle = torch.sort(q @ base.T, dim=1, descending=True, stable=True).indices[:, :10].cpu()
+    base_np, q_np, src = base.cpu().numpy(), q.cpu().numpy(), src.cpu().numpy()
+    ids = [f"r{i}" for i in range(N_ROWS)]
+    del base
+    torch.cuda.empty_cache()
+    for name, opts, kernel, bar in (t for t in TIERS if t[0] in SHARDED_TIERS):
+        index = ShardedFlatIndex(DIM, [dev], capacity_per_shard=N_ROWS // RANKS, group=group,
+                                 **opts)
+        index.add(base_np, ids)
+        ft.reset_launches()
+        hits = index.search(q_np, 10)
+        launched = dict(ft.LAUNCHES)
+        res = {"hits": _wire_hits(hits), "launches": launched, "kernel": kernel, "bar": bar,
+               "recall": float(np.mean([len({x for x, _ in h} & {f"r{int(j)}" for j in o}) / 10
+                                        for h, o in zip(hits, oracle)])),
+               "top1": float(np.mean([h[0][0] == f"r{s}" for h, s in zip(hits, src)]))}
+        out["errs"][kernel] = max(out["errs"].get(kernel, 0.0), shard_bank_check(
+            label, name, kernel, index, q[:MAIN_Q], index.own[0], tag="phase8"))
+        res["ms"] = {Q: search_ms(index, q_np[:Q]) for Q in TIMED_Q}
+        del index
+        torch.cuda.empty_cache()
+        if rank == 0:
+            one = ShardedFlatIndex(DIM, [dev] * RANKS, capacity_per_shard=N_ROWS // RANKS,
+                                   **opts)
+            one.add(base_np, ids)
+            res["single_hits"] = _wire_hits(one.search(q_np, 10))
+            res["single_ms"] = {Q: search_ms(one, q_np[:Q]) for Q in TIMED_Q}
+            del one
+            torch.cuda.empty_cache()
+        out["flat"][name] = res
+        print(f"[{label}] phase8 {name} done", flush=True)
+    del base_np
+
+    # The all_gather of the merge's [Q, kk] candidates (kk = 40 at k = 10):
+    # values and global rows in one exchange, through the host on gloo.
+    out["gather_ms"] = {}
+    for Q in TIMED_Q:
+        vals = torch.zeros((Q, 40), device=dev)
+        rows = torch.zeros((Q, 40), dtype=torch.int64, device=dev)
+        times = []
+        for i in range(21):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gather_candidates(vals, rows, group)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t) * 1e3)
+        out["gather_ms"][Q] = statistics.median(times)
+
+    # The 1M-row IVF configuration of phase 4, int8, its clusters over the ranks.
+    centres = unit_rows(IVF_CENTRES, DIM, gen, dev)
+    base = clustered_rows(N_ROWS, centres, gen)
+    q1 = clustered_rows(128, centres, gen)
+    oracle1 = oracle_topk(q1, base)
+    base_np, q1_np = base.cpu().numpy(), q1.cpu().numpy()
+    del base
+    torch.cuda.empty_cache()
+    ids = list(range(N_ROWS))
+    t0 = time.perf_counter()
+    index = ShardedIVFIndex(DIM, [dev], group=group, **IVF_1M_SHARDED)
+    index.build(base_np, ids)
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0, "C": index.C, "M": index.M,
+           "spill": index.spill.count}
+    ft.reset_launches()
+    hits = index.search(q1_np, IVF_K)
+    res.update(hits=_wire_hits(hits), launches=dict(ft.LAUNCHES),
+               recall=recall_at_k(hits, oracle1))
+    out["errs"]["ivf_batch"] = ivf_shard_bank_check(label, "phase8 1M", index,
+                                                    q1[:MAIN_Q].contiguous(), index.own[0])
+    res["ms"] = {Q: search_ms(index, q1_np[:Q]) for Q in TIMED_Q}
+    res["centroids"] = hashlib.sha256(index.centroids.cpu().numpy().tobytes()).hexdigest()
+    del index
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = ShardedIVFIndex(DIM, [dev] * RANKS, **IVF_1M_SHARDED)
+        one.build(base_np, ids)
+        res["single_hits"] = _wire_hits(one.search(q1_np, IVF_K))
+        res["single_ms"] = {Q: search_ms(one, q1_np[:Q]) for Q in TIMED_Q}
+        del one
+    out["ivf"] = res
+    with open(os.path.join(work, f"phase8_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn(argv: list[str], env: dict, log_path: str, cwd: str):
+    with open(log_path, "w") as log:
+        return subprocess.Popen(argv, cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def _reap(procs, logs, timeout: float, what: str) -> None:
+    """Wait for every process; on a failure or past the timeout, kill all,
+    print the logs' tails, and fail."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+        check(not bad, f"{what}: rank(s) {bad} exited with "
+                       f"{[procs[i].returncode for i in bad]}")
+    except BaseException as exc:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for i, path in enumerate(logs):
+            with open(path) as fh:
+                sys.stderr.write(f"{what} rank {i} log tail:\n{fh.read()[-3000:]}\n")
+        if isinstance(exc, subprocess.TimeoutExpired):
+            raise SmokeFailure(f"{what}: a rank ran past {timeout:.0f}s") from exc
+        raise
+
+
+def phase8_http(label: str, seed: int, work: str) -> int:
+    """`python -m memex_tpu_torch serve --device cuda` on two ranks over
+    gloo (MEMEX_COORDINATOR, a `tpu+mesh://` float32 store and a SQLite file
+    each), at full all-MiniLM-L12-v2 width: each document posted to both
+    and completed on both before the next, then each search sent to both at
+    once. Both must answer with the same hits, each launching K1 once a
+    search; both must shut down cleanly, each with its own copy of the same
+    checkpoint. Returns the K1 launches."""
+    model_dir = os.path.join(work, "model")
+    if not os.path.exists(model_dir):
+        write_checkpoint(model_dir, seed)
+    coord, ports = f"127.0.0.1:{free_port()}", [free_port() for _ in range(RANKS)]
+    bases = [f"http://127.0.0.1:{p}" for p in ports]
+    procs, logs = [], []
+    for r in range(RANKS):
+        env = dict(os.environ, EMBEDDING_MODEL=model_dir, MEMEX_FAKE_LLM="1",
+                   MEMEX_COORDINATOR=coord, MEMEX_NUM_PROCESSES=str(RANKS),
+                   MEMEX_PROCESS_ID=str(r), MEMEX_DIST_BACKEND="gloo",
+                   DATABASE_CONNECTION=f"sqlite://{work}/p8_rank{r}.db",
+                   VECTOR_CONNECTION=f"tpu+mesh://{work}/vectors_p8_rank{r}",
+                   HOST="127.0.0.1", PORT=str(ports[r]),
+                   PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                                              if p))
+        logs.append(os.path.join(work, f"server_p8_rank{r}.log"))
+        procs.append(_spawn([sys.executable, "-m", "memex_tpu_torch", "serve", "--roles",
+                             "Api,Worker", "--device", "cuda"], env, logs[-1], work))
+    try:
+        deadline = time.monotonic() + 300
+        for base in bases:
+            while True:
+                check(all(p.poll() is None for p in procs), "a serving rank exited")
+                try:
+                    http("GET", f"{base}/api/health", timeout=5)
+                    break
+                except OSError:
+                    check(time.monotonic() < deadline, "the ranks did not come up in 300s")
+                    time.sleep(0.5)
+        docs = make_docs(random.Random(seed + 8), SERVE_DOCS)
+        t0 = time.perf_counter()
+        for doc in docs:
+            tasks = [http("POST", f"{b}/api/collections/smoke", {"content": doc})["result"]
+                     ["taskId"] for b in bases]
+            for b, tid in zip(bases, tasks):
+                while True:
+                    status = http("GET", f"{b}/api/tasks/{tid}")["result"]["status"]
+                    check(status != "Failed", f"ingest task {tid} failed on {b}")
+                    if status == "Completed":
+                        break
+                    check(time.perf_counter() - t0 < 600, "lockstep ingest past 600s")
+                    time.sleep(0.02)
+        ingest_s = time.perf_counter() - t0
+        before = [_launches(b, "fused_topk") for b in bases]
+        rng = random.Random(seed + 9)
+        picks = [rng.randrange(len(docs)) for _ in range(SERVE_SEARCHES)]
+        lat = []
+        with ThreadPoolExecutor(RANKS) as pool:
+            for i in picks:
+                t = time.perf_counter()
+                answers = list(pool.map(lambda b, d=docs[i]: http(
+                    "POST", f"{b}/api/collections/smoke/search", {"query": d, "limit": 10}),
+                    bases))
+                lat.append((time.perf_counter() - t) * 1e3)
+                hits = [a["result"]["results"] for a in answers]
+                check(all(h == hits[0] for h in hits), f"the ranks differ on doc {i}")
+                check(len(hits[0]) == 10 and hits[0][0]["content"] == docs[i],
+                      f"doc {i}'s own text ranked {hits[0][0]['content'][:40]!r} first")
+        launched = [_launches(b, "fused_topk") - n for b, n in zip(bases, before)]
+        check(launched == [SERVE_SEARCHES] * RANKS,
+              f"K1 launches per rank {launched}, not {SERVE_SEARCHES} each")
+        lat.sort()
+        print(f"[{label}] phase8 http two ranks: ingest docs={len(docs)} lockstep seconds="
+              f"{ingest_s:.3f}; searches={len(picks)} identical on both ranks, p50_ms="
+              f"{lat[len(lat) // 2]:.3f} max_ms={lat[-1]:.3f}; K1 launches per rank "
+              f"{launched}", flush=True)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for r, path in enumerate(logs):
+            with open(path) as fh:
+                sys.stderr.write(f"phase8 http rank {r} log tail:\n{fh.read()[-3000:]}\n")
+        raise
+    for p in procs:
+        p.send_signal(signal.SIGTERM)
+    _reap(procs, logs, 120, "phase8 http")  # both must exit 0
+    metas = []
+    for r in range(RANKS):  # each rank wrote its own copy of the same checkpoint
+        with open(os.path.join(work, f"vectors_p8_rank{r}", "smoke.mesh.meta.json")) as fh:
+            metas.append(fh.read())
+    check(all(m == metas[0] for m in metas), "the ranks wrote different checkpoints")
+    return sum(launched)
+
+
+def phase8(label: str, seed: int, work: str) -> tuple[dict, dict]:
+    """Two ranks on the card (see phase8_rank), then two ranks of the server.
+    Returns (each kernel's launches on this path, its worst bank error)."""
+    import torch
+
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    torch.cuda.empty_cache()
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, MEMEX_DIST_BACKEND="gloo",
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    env.pop("MEMEX_COORDINATOR", None)
+    t0 = time.perf_counter()
+    logs = [os.path.join(work, f"phase8_rank{r}.log") for r in range(RANKS)]
+    procs = [_spawn([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                     "--phase8-rank", str(r), "--coordinator", coord, "--work", work],
+                    env, logs[r], work) for r in range(RANKS)]
+    _reap(procs, logs, RANK_TIMEOUT_S, "phase8")
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(work, f"phase8_rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    print(f"[{label}] phase8 two ranks over gloo on one card: seconds="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    launches = dict.fromkeys(ft.LAUNCHES, 0)
+    errs: dict[str, float] = {}
+    for r, res in enumerate(ranks):
+        for kernel, err in res["errs"].items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    for name in [t[0] for t in TIERS if t[0] in SHARDED_TIERS] + ["ivf"]:
+        per = [res["ivf"] if name == "ivf" else res["flat"][name] for res in ranks]
+        lead = per[0]
+        kernel = "ivf_batch" if name == "ivf" else lead["kernel"]
+        bar = 0.93 if name == "ivf" else lead["bar"]
+        n = [p["launches"][kernel] for p in per]
+        check(n == [1] * RANKS, f"phase8 {name}: {kernel} launches per rank {n}, not 1 each")
+        for p in per:
+            launches[kernel] += p["launches"][kernel]
+            if name == "ivf":
+                launches["fused_topk_int8q"] += p["launches"]["fused_topk_int8q"]  # the spill
+        check(all(p["hits"] == lead["hits"] for p in per), f"phase8 {name}: the ranks differ")
+        check(lead["hits"] == lead["single_hits"],
+              f"phase8 {name}: two ranks differ from the single controller")
+        if name == "ivf":
+            check(all(p["centroids"] == lead["centroids"] for p in per),
+                  "phase8 ivf: the ranks hold different centroids")
+        check(lead["recall"] >= bar, f"phase8 {name}: recall@10 {lead['recall']:.4f} < {bar}")
+        if name != "ivf":
+            check(lead["top1"] >= 0.99, f"phase8 {name}: source row first {lead['top1']:.4f}")
+        extra = (f"build_seconds={lead['build_s']:.3f} C={lead['C']} M={lead['M']} "
+                 f"spill_rows={lead['spill']} " if name == "ivf" else "")
+        print(f"[{label}] phase8 {name} Q=128 {kernel}_launches_per_rank={n} {extra}"
+              f"recall_at_10_vs_f32_oracle={lead['recall']:.4f} (bar {bar}) hits identical "
+              f"across ranks and to the single controller over {RANKS} shards", flush=True)
+        for Q in map(str, TIMED_Q):  # JSON keys
+            ms = " / ".join(f"{p['ms'][Q]:.3f}" for p in per)
+            print(f"[{label}] phase8 {name} search Q={Q} median_ms two_ranks={ms} "
+                  f"single_controller={lead['single_ms'][Q]:.3f}", flush=True)
+    for Q in map(str, TIMED_Q):
+        ms = " / ".join(f"{res['gather_ms'][Q]:.3f}" for res in ranks)
+        print(f"[{label}] phase8 all_gather of [Q, 40] float32 + int64 (one int32 exchange) "
+              f"over gloo Q={Q} "
+              f"median_ms={ms}", flush=True)
+    launches["fused_topk"] += phase8_http(label, seed, work)
+    return launches, errs
+
+
+def add_path(launches: dict, stats: dict, path: dict, errs: dict, what: str) -> None:
+    """Fold a path's launches and bank errors into the kernels line: each of
+    K1-K5 must have launched on it."""
+    for name in ("fused_topk", "fused_topk_int8q", "fused_topk_int8", "fused_topk_int4q",
+                 "ivf_batch"):
+        check(path[name] > 0, f"{what} launched {name} 0 times")
+        launches[name] += path[name]
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], errs[name])
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # One rank of phase 8, spawned by phase 8 itself.
+    ap.add_argument("--phase8-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
+
+    if args.phase8_rank is not None:
+        phase8_rank(args.phase8_rank, args.coordinator, args.work, args.seed)
+        return 0
 
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke run needs a CUDA card",
@@ -2249,7 +2628,17 @@ def main(argv: list[str] | None = None) -> int:
         print(label, flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        t_all = time.perf_counter()
+        t_phase = [t_all]
+
+        def phase_done(n: int) -> None:
+            now = time.perf_counter()
+            print(f"[{label}] phase {n} seconds={now - t_phase[0]:.1f} "
+                  f"(smoke so far {now - t_all:.1f})", flush=True)
+            t_phase[0] = now
+
         stats = phase1(label, args.seed)
+        phase_done(1)
         work = tempfile.mkdtemp(prefix="memex_smoke_")
         try:
             # Each kernel's launches come from its tier's main-path run:
@@ -2262,29 +2651,37 @@ def main(argv: list[str] | None = None) -> int:
                     "ivf_batch": phase2(label, args.seed, work,
                                         "vectors_ivf?n_clusters=16&nprobe=4", "ivf_batch",
                                         scheme="tpu+ivf", n_docs=1200)}
+            phase_done(2)
             launches, flat = phase3(label, args.seed, work)
+            phase_done(3)
             ivf_launches, ivf_stats, ivf10m = phase4(label, args.seed, work)
             stats.update(ivf_stats)
             launches.update(ivf_launches)
             launches.update(http)
+            phase_done(4)
             # Phase 5 is the sharded tiers' own path: each of K1-K5 must
             # launch there too. Its launches add to the line's.
             sharded, errs = phase5(label, args.seed, work, flat, ivf10m)
             del flat, ivf10m
-            for name in ("fused_topk", "fused_topk_int8q", "fused_topk_int8",
-                         "fused_topk_int4q", "ivf_batch"):
-                check(sharded[name] > 0, f"the sharded path launched {name} 0 times")
-                launches[name] += sharded[name]
-                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], errs[name])
+            add_path(launches, stats, sharded, errs, "the sharded path")
+            phase_done(5)
             # Phase 6, the local LLM: no scan kernel runs there, and its 7B
             # models need the card's memory to themselves.
             phase6(label, args.seed, work)
+            phase_done(6)
             # Phase 7, encoder fine-tuning; its server's searches run K1.
             ft = phase7(label, args.seed, work)
             check(ft > 0, "the fine-tuned encoder's searches launched fused_topk 0 times")
             launches["fused_topk"] += ft
+            phase_done(7)
+            # Phase 8, two ranks over a process group: K1-K5 on each rank's
+            # shard, then two ranks of the server (K1).
+            ranked, errs = phase8(label, args.seed, work)
+            add_path(launches, stats, ranked, errs, "the two-rank path")
+            phase_done(8)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        print(f"[{label}] smoke seconds={time.perf_counter() - t_all:.1f}", flush=True)
         for name, n in launches.items():
             check(n > 0, f"the main path launched {name} 0 times")
     except (SmokeFailure, ImportError, RuntimeError, OSError) as exc:

@@ -1,10 +1,11 @@
 """CLI entry point: `python -m memex_tpu_torch {serve,migrate,train,load,
 download-model}`.
 
-Port of memex_tpu/__main__.py. `serve` drops its JAX parts (multi-host
-bring-up, the XLA compile cache, the backend check before warmup); the
-API server and the worker are the port's copies, driven with a
-TorchRuntime. `serve`, `train` and `load` take `--device`, which defaults
+Port of memex_tpu/__main__.py. `serve` joins a multi-host process group
+first when MEMEX_COORDINATOR is set (parallel/distributed.py), and drops
+memex_tpu's other JAX parts (the XLA compile cache, the backend check
+before warmup); the API server and the worker are the port's copies,
+driven with a TorchRuntime. `serve`, `train` and `load` take `--device`, which defaults
 to `cuda`; they fail when CUDA is not available unless `--device cpu` is
 given: none moves to the CPU on its own.
 """
@@ -37,11 +38,16 @@ def _device(args: argparse.Namespace):
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
+    from .parallel.distributed import init_multihost
     from .runtime import TorchRuntime
 
     device = _device(args)
     if device is None:
         return 2
+    # Multi-host bring-up before the runtime (memex_tpu's order): the
+    # sharded stores then span every rank. Each rank must receive the same
+    # requests in the same order, as in memex_tpu; nothing here arranges it.
+    init_multihost(device=device)
     roles = {r.strip().lower() for r in args.roles.split(",") if r.strip()}
     if not roles or not roles <= {"api", "worker"}:
         logger.error("invalid roles %r (expected Api,Worker)", args.roles)

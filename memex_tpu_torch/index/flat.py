@@ -75,8 +75,8 @@ def _int4_rerank_depth(k: int) -> int:
 def _int4_deferred(q_n: int) -> bool:
     """int4 unpack by batch size, memex_tpu's rule (measured on its TPU):
     deferred up to 64 queries, shift above. On the H100 shift is faster
-    from 32 queries up and level with deferred below (PERF.md, section 7),
-    but the rule is kept for parity."""
+    from 32 queries up and level with deferred below (PERF.md, section 6,
+    the K4 row), but the rule is kept for parity."""
     return q_n <= 64
 
 

@@ -11,6 +11,17 @@ merge on the lead device (parallel/collectives.py). The scan per shard is
 K1 (float32/bfloat16), K2 (int8), K3 (int8 with query_quantize=False) or
 K4 + its int8 rerank (int4), with memex_tpu's bank widths.
 
+Under a process group (`group=`, one controller a rank, as memex_tpu after
+`init_multihost`) `devices` are this rank's own shards and global shard g
+is rank * P_local + p (parallel/mesh.py::shard_layout). Every rank is
+called with the same arguments in the same order, so the host state (fill
+levels, id tables, host shadow, tombstones) is the same on every rank;
+device buffers exist only for the rank's own shards, and every write and
+scan touches only those. A search all_gathers the ranks' candidates into
+one merge, so every rank returns the same hits, and every branch after it
+reads only the merged hits. Every rank saves its own copy of the same
+checkpoint files, as every memex_tpu process does.
+
 Layout, per shard (memex_tpu's global arrays, cut at shard boundaries):
   bufs[p]    [cap, D] rows (int4: [cap, D/2] packed nibbles, row-major
              where memex_tpu keeps them transposed)
@@ -42,7 +53,7 @@ from ..ops.fused_topk import (
     np_quantize_rows_int4,
 )
 from ..parallel.collectives import merge_topk_across
-from ..parallel.mesh import replicate
+from ..parallel.mesh import replicate, shard_layout
 from .flat import FlatIndex, _put, _search_plain
 
 logger = get_logger(__name__)
@@ -54,6 +65,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.i
 _QUANTIZED = ("int8", "int4")
 
 
+def write_atomically(file: str, write) -> None:
+    """write(fh) into a name of this process's own, then rename it to
+    `file`: ranks of a process group that share a directory each write
+    their copy of the same file, and none reads another's half-written."""
+    tmp = f"{file}.tmp{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        write(fh)
+    os.replace(tmp, file)
+
+
 class ShardedFlatIndex:
     """Exact index over len(devices) shards with a top-k merge on the lead
     device. Same hits as FlatIndex on one shard; P shards scan in parallel
@@ -61,8 +82,9 @@ class ShardedFlatIndex:
 
     def __init__(self, dim: int, devices: list, capacity_per_shard: int = 2048,
                  use_fused: bool | None = None, block_n: int = 1024,
-                 dtype: str = "float32", query_quantize: bool = True):
-        """devices: one entry per shard (torch devices or their names).
+                 dtype: str = "float32", query_quantize: bool = True, group=None):
+        """devices: one entry per shard (torch devices or their names);
+        under a process group `group`, this rank's own shards.
         capacity_per_shard rounds up to a power of two >= block_n.
         use_fused defaults to True when the lead device is a CUDA card."""
         if dtype not in _DTYPES:
@@ -71,8 +93,11 @@ class ShardedFlatIndex:
             raise ValueError(f"int4 packing needs an even dim, got {dim}")
         if not devices:
             raise ValueError("a sharded index needs at least one device")
-        self.devices = [torch.device(d) for d in devices]
-        self.lead = self.devices[0]
+        self.group = group
+        # Global shard list (None: another rank's shard) and this
+        # controller's own shards in it.
+        self.devices, self.own = shard_layout(devices, group)
+        self.lead = self.devices[self.own[0]]
         self.dim = dim
         self.dtype = dtype
         self.query_quantize = query_quantize
@@ -88,11 +113,13 @@ class ShardedFlatIndex:
         self._reset()
 
     def _reset(self) -> None:
-        """Zeroed shards at self.cap, empty id tables and host shadow."""
+        """Zeroed own shards at self.cap (None for another rank's), empty id
+        tables and host shadow."""
         cap, quant = self.cap, self.dtype in _QUANTIZED
 
         def each(shape, dtype):
-            return [torch.zeros(shape, dtype=dtype, device=d) for d in self.devices]
+            return [None if d is None else torch.zeros(shape, dtype=dtype, device=d)
+                    for d in self.devices]
 
         width = self.dim // 2 if self.dtype == "int4" else self.dim
         self.bufs = each((cap, width), _DTYPES[self.dtype])
@@ -170,14 +197,16 @@ class ShardedFlatIndex:
             self._sh_rows[base : base + take] = qall[sl]
             if self._sh_scales is not None:
                 self._sh_scales[base : base + take] = sall[sl]
-                _put(self.scales[s], lo, sall[sl])
             self._unsaved.extend(zip(grows, sids))
-            if self.dtype == "int4":
-                _put(self.bufs[s], lo, pall[sl])
-                _put(self.buf8s[s], lo, qall[sl])
-            else:
-                _put(self.bufs[s], lo, qall[sl])
-            self.alive[s][lo : lo + take] = 1.0
+            if self.bufs[s] is not None:  # an own shard: write its device copy
+                if self.scales is not None:
+                    _put(self.scales[s], lo, sall[sl])
+                if self.dtype == "int4":
+                    _put(self.bufs[s], lo, pall[sl])
+                    _put(self.buf8s[s], lo, qall[sl])
+                else:
+                    _put(self.bufs[s], lo, qall[sl])
+                self.alive[s][lo : lo + take] = 1.0
             self.counts[s] += take
             cursor += take
 
@@ -233,6 +262,8 @@ class ShardedFlatIndex:
         if grows:
             g = np.asarray(grows, np.int64)
             for s in np.unique(g // self.cap):
+                if self.alive[s] is None:
+                    continue  # another rank's shard
                 local = torch.from_numpy(g[g // self.cap == s] % self.cap)
                 self.alive[s][local.to(self.devices[s])] = 0.0
             self.dead += len(grows)
@@ -292,8 +323,9 @@ class ShardedFlatIndex:
         return _search_plain(rows, scales, alive, count, q, kk)
 
     def _search_shards(self, queries: np.ndarray, k: int, fused: bool):
-        """Every shard's scan, then the merge on the lead device: (vals,
-        global row) [Q, k] tensors there, not yet fetched."""
+        """Every own shard's scan, then the merge on the lead device (across
+        the group's ranks under a process group): (vals, global row) [Q, k]
+        tensors there, not yet fetched."""
         kk = min(4 * k, 128, self.cap)
         # The fused banks are <= 128 wide: a deeper k takes the plain scan,
         # with kk widened to cover it.
@@ -303,14 +335,14 @@ class ShardedFlatIndex:
         masked = bool(self.dead)
         # Queries reach every device first: a blocking host->device copy
         # waits for its device's stream, so it must not follow a launch.
-        q = replicate(torch.from_numpy(queries), self.devices)
+        q = replicate(torch.from_numpy(queries), [self.devices[s] for s in self.own])
         vals, gidx = [], []
-        for s in range(self.P):
+        for j, s in enumerate(self.own):
             alive = self.alive[s] if masked or not fused else None
-            v, i = self._shard_scan(s, q[s], kk, fused, alive)
+            v, i = self._shard_scan(s, q[j], kk, fused, alive)
             vals.append(v)
             gidx.append(i.long() + s * self.cap)
-        return merge_topk_across(vals, gidx, k, self.lead)
+        return merge_topk_across(vals, gidx, k, self.lead, self.group)
 
     def search(self, queries: np.ndarray, k: int) -> list[list[tuple[str, float]]]:
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
@@ -321,7 +353,8 @@ class ShardedFlatIndex:
         out = self._hits_from(*self._search_shards(queries, k_eff, self.use_fused))
         if self.use_fused and self.dead:
             # Shortfall under tombstones: dead rows can crowd the fused
-            # banks; the plain scan masks them before its top-k.
+            # banks; the plain scan masks them before its top-k. The hits
+            # are the merged ones, the same on every rank.
             if any(len(h) < k_eff for h in out):
                 logger.info("sharded fused shortfall under deletes; exact rerun")
                 out = self._hits_from(*self._search_shards(queries, k_eff, False))
@@ -344,7 +377,10 @@ class ShardedFlatIndex:
 
     def save(self, path: str) -> None:
         """Incremental checkpoint from the host shadow: appends the rows
-        added since the last save; a compaction or clear rewrites."""
+        added since the last save; a compaction or clear rewrites. Under a
+        process group every rank writes its own copy of the same files from
+        its replicated shadow, as every memex_tpu process does, and meets no
+        other rank on the way."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         full = (path != self._ckpt_path or self._generation != self._ckpt_gen
                 or not os.path.exists(path + ".meta.json"))
@@ -369,7 +405,8 @@ class ShardedFlatIndex:
                 arrs["scales"] = self._sh_scales[grows]
             else:
                 arrs["vectors"] = self._sh_rows[grows].astype(np.float32)
-            np.savez(os.path.join(os.path.dirname(path) or ".", name), **arrs)
+            write_atomically(os.path.join(os.path.dirname(path) or ".", name),
+                             lambda fh: np.savez(fh, **arrs))
             self._segments.append(name)
         self._unsaved = []
         meta = {
@@ -379,16 +416,13 @@ class ShardedFlatIndex:
             "segments": self._segments,
             "dead_rows": sorted(int(g) for g in self._dead_rows),
         }
-        tmp = path + ".meta.json.tmp"
-        with open(tmp, "w", encoding="utf-8") as fh:
-            json.dump(meta, fh)
-        os.replace(tmp, path + ".meta.json")
+        write_atomically(path + ".meta.json", lambda fh: fh.write(json.dumps(meta).encode()))
 
     def restore(self, path: str) -> int:
         """Re-add a checkpoint's rows into this (fresh) index through the
-        water-filling add; returns the rows restored. The segment log is
-        not resumed (the re-add renumbers global rows): the next save
-        rewrites from the host shadow."""
+        water-filling add (every rank reads the files); returns the rows
+        restored. The segment log is not resumed (the re-add renumbers
+        global rows): the next save rewrites from the host shadow."""
         with open(path + ".meta.json", "r", encoding="utf-8") as fh:
             meta = json.load(fh)
         if meta.get("format") != 2:  # legacy single-npz

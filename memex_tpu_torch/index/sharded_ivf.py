@@ -16,6 +16,17 @@ take raises rather than falling back to the dense scan.
 Streaming adds go to a ShardedFlatIndex spill (int8: K2); fold_spill()
 streams them into free bucket slots, rebuild() retrains. Checkpoints are
 memex_tpu's `.ivfmesh` format 2, so either package restores the other's.
+
+Under a process group (`group=`, one controller a rank) global shard g is
+rank * P_local + p and owns clusters [g * Cp, (g + 1) * Cp); each rank
+holds only its own bucket blocks, launches only their scans, and the
+ranks all_gather their candidates into one merge. What memex_tpu holds
+replicated is the same on every rank: the centroids, the cluster
+assignments behind the sizes and row ids, the fold's cluster choices and
+the mean are derived once, on rank 0, and broadcast; the rest follows
+from them and from the arguments, which every rank receives in the same
+order. A gather of table rows (rebuild, save, calibration) sums the
+ranks' own slots. Every rank saves its own copy of the same checkpoint.
 """
 
 from __future__ import annotations
@@ -25,17 +36,18 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..log import get_logger
 from ..ops.fused_topk import scores_f32
 from ..ops.ivf_batch import ivf_batch_topk
 from ..ops.topk import blockwise_topk, exact_topk
-from ..parallel.collectives import merge_topk_across
-from ..parallel.mesh import replicate, row_blocks
+from ..parallel.collectives import all_gather_cat, from_rank0, merge_topk_across, sum_across
+from ..parallel.mesh import replicate, row_blocks, shard_layout
 from .flat import FlatIndex
 from .ivf import (_BLOCK, IVFIndex, _capacity_fill, _topk_clusters, bucket_pack_dest,
                   calibrate_operating_point, calibrate_prune_margin, kmeans_assign, kmeans_fit)
-from .sharded import ShardedFlatIndex
+from .sharded import ShardedFlatIndex, write_atomically
 
 logger = get_logger(__name__)
 
@@ -100,9 +112,11 @@ def _dense_topk(data, rscales, sizes, q, kk: int, mask=None):
     return vals, idx.long()
 
 
-def _flat(tables: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Per-shard [Cp, M, ...] tables viewed as [Cp * M, ...]."""
-    return [t.view(t.shape[0] * t.shape[1], *t.shape[2:]) for t in tables]
+def _flat(tables: list) -> list:
+    """Per-shard [Cp, M, ...] tables viewed as [Cp * M, ...] (None stays
+    None: another rank's shard)."""
+    return [None if t is None else t.view(t.shape[0] * t.shape[1], *t.shape[2:])
+            for t in tables]
 
 
 class ShardedIVFIndex:
@@ -112,16 +126,21 @@ class ShardedIVFIndex:
     def __init__(self, dim: int, devices: list, n_clusters: int = 256, nprobe: int = 32,
                  bucket_factor: float = 2.0, seed: int = 0, use_fused: bool | None = None,
                  prune_margin: float | None = None, rerank: int | None = None,
-                 refine: bool = False, center: bool | None = None):
-        """devices: one entry per shard. n_clusters rounds up to a multiple
-        of the shard count. refine keeps int8 codes of the quantization
+                 refine: bool = False, center: bool | None = None, group=None):
+        """devices: one entry per shard; under a process group `group`, this
+        rank's own shards. n_clusters rounds up to a multiple of the
+        global shard count. refine keeps int8 codes of the quantization
         residual for a per-shard float32 rescore of each shard's
         candidates (rerank defaults to 256, capped at 512). use_fused
         defaults to True when the lead device is a CUDA card."""
         if not devices:
             raise ValueError("a sharded index needs at least one device")
-        self.devices = [torch.device(d) for d in devices]
-        self.lead = self.devices[0]
+        self.group = group
+        # Global shard list (None: another rank's shard) and this
+        # controller's own shards in it.
+        self.devices, self.own = shard_layout(devices, group)
+        self.lead = self.devices[self.own[0]]
+        self.rank0 = group is None or dist.get_rank(group) == 0
         self.dim = dim
         self.P = len(self.devices)
         self.C = -(-n_clusters // self.P) * self.P
@@ -154,7 +173,8 @@ class ShardedIVFIndex:
         self._sizes_h: np.ndarray | None = None  # [C] host copy of the sizes
         self.rowids: np.ndarray | None = None    # [C, M] host cache of the rowids
         self.ids: list = []
-        self.spill = ShardedFlatIndex(dim, self.devices, dtype="int8", use_fused=self.use_fused)
+        self.spill = ShardedFlatIndex(dim, [self.devices[p] for p in self.own], dtype="int8",
+                                      use_fused=self.use_fused, group=group)
         self._deleted: set = set()
         self._live: set = set()
         self._ids_nulled = False  # an add() nulled stale table ids (delete -> re-add)
@@ -175,7 +195,7 @@ class ShardedIVFIndex:
 
     @property
     def M(self) -> int:
-        return self.data[0].shape[1]
+        return self.data[self.own[0]].shape[1]
 
     def _pin_mean(self, vectors: np.ndarray | None) -> None:
         """Pin the shared quantization center (idempotent), before the first
@@ -183,7 +203,8 @@ class ShardedIVFIndex:
         if self.mean is not None:
             return
         if self.center and vectors is not None and len(vectors):
-            self.mean = np.asarray(vectors, np.float32).mean(axis=0)
+            mean = np.asarray(vectors, np.float32).mean(axis=0)
+            self.mean = from_rank0(torch.from_numpy(mean), self.group).numpy()
         else:
             self.mean = np.zeros((self.dim,), np.float32)
         if self.spill.count and self.mean.any():
@@ -217,22 +238,26 @@ class ShardedIVFIndex:
 
     # -- placement across shards ----------------------------------------------
 
-    def _new_tables(self, M: int, tail: tuple, dtype: torch.dtype, fill) -> list[torch.Tensor]:
-        """One [Cp, M, *tail] table per shard, on its device, set to fill."""
-        return [torch.full((self.Cp, M, *tail), fill, dtype=dtype, device=d)
+    def _new_tables(self, M: int, tail: tuple, dtype: torch.dtype, fill) -> list:
+        """One [Cp, M, *tail] table per own shard, on its device, set to
+        fill (None for another rank's)."""
+        return [None if d is None else torch.full((self.Cp, M, *tail), fill, dtype=dtype, device=d)
                 for d in self.devices]
 
     def _scatter_into(self, tables: list[list[torch.Tensor]], dest: torch.Tensor,
                       srcs: list[torch.Tensor]) -> None:
         """Row i of every srcs[j] lands at global flat slot dest[i] of
         tables[j] (per-shard [Cp, M, ...]); a dest past the last slot
-        drops. Blocks of rows at a time, each copied to its shard."""
-        span = self.Cp * tables[0][0].shape[1]
+        drops. Blocks of rows at a time, each copied to its shard (own
+        shards only: another rank writes its own)."""
+        span = self.Cp * tables[0][self.own[0]].shape[1]
         flats = [_flat(t) for t in tables]
         for lo in range(0, dest.shape[0], _BLOCK):
             d = dest[lo : lo + _BLOCK]
             shard = d // span
             for p, dev in enumerate(self.devices):
+                if dev is None:
+                    continue
                 ok = torch.nonzero(shard == p).squeeze(1)
                 if not ok.numel():
                     continue
@@ -240,19 +265,22 @@ class ShardedIVFIndex:
                 for flat, src in zip(flats, srcs):
                     flat[p][tgt] = src[lo : lo + _BLOCK][ok.to(src.device)].to(dev)
 
-    def _gather(self, tables: list[torch.Tensor], sel: np.ndarray) -> torch.Tensor:
+    def _gather(self, tables: list, sel: np.ndarray) -> torch.Tensor:
         """Global flat slots `sel` of a per-shard table, in sel's order, on
-        the lead device."""
+        the lead device (under a process group: every rank's own slots,
+        summed into one zeroed buffer)."""
         flats = _flat(tables)
-        span = flats[0].shape[0]
-        out = torch.empty((len(sel), *flats[0].shape[1:]), dtype=flats[0].dtype,
-                          device=self.lead)
+        first = flats[self.own[0]]
+        span = first.shape[0]
+        out = torch.zeros((len(sel), *first.shape[1:]), dtype=first.dtype, device=self.lead)
         shard = sel // span
         for p in np.unique(shard):
+            if flats[p] is None:
+                continue
             pos = np.nonzero(shard == p)[0]
             local = torch.from_numpy(sel[pos] - p * span).to(self.devices[p])
             out[torch.from_numpy(pos).to(self.lead)] = flats[p][local].to(self.lead)
-        return out
+        return sum_across(out, self.group)
 
     def _pack(self, vecs_q, scales, assign: torch.Tensor, counts: torch.Tensor, M: int,
               resid=None, resid_scales=None):
@@ -284,14 +312,18 @@ class ShardedIVFIndex:
         return order
 
     def _assign(self, vecs_q, scales) -> torch.Tensor:
-        """Nearest centroid of each int8 row (bf16 rows times bf16 scales)."""
+        """Nearest centroid of each int8 row (bf16 rows times bf16 scales);
+        rank 0's under a process group."""
+        n, dev = vecs_q.shape[0], vecs_q.device
+        if not n:
+            return torch.zeros((0,), dtype=torch.int64, device=dev)
+        if not self.rank0:
+            return from_rank0(torch.empty((n,), dtype=torch.int64, device=dev), self.group)
         parts = [kmeans_assign(vecs_q[s : s + _BLOCK].to(torch.bfloat16)
                                * scales[s : s + _BLOCK, None].to(torch.bfloat16),
-                               self.centroids.to(vecs_q.device))
-                 for s in range(0, vecs_q.shape[0], _BLOCK)]
-        if not parts:
-            return torch.zeros((0,), dtype=torch.int64, device=vecs_q.device)
-        return torch.cat(parts)
+                               self.centroids.to(dev))
+                 for s in range(0, n, _BLOCK)]
+        return from_rank0(torch.cat(parts), self.group)
 
     # -- build ----------------------------------------------------------------
 
@@ -353,12 +385,16 @@ class ShardedIVFIndex:
         self._host_resid = self._host_resid_scales = None
 
         dev = vecs_q.device
-        m_samp = min(n_valid, max(self.C * 64, 65536))
-        gen = torch.Generator(device=dev).manual_seed(self.seed)
-        samp_idx = _train_sample(n_valid, m_samp, gen)
-        sample = vecs_q[samp_idx].float() * scales[samp_idx, None]
-        self._set_centroids(kmeans_fit(sample, self.C, seed=self.seed, generator=gen))
-        del sample
+        if self.rank0:
+            m_samp = min(n_valid, max(self.C * 64, 65536))
+            gen = torch.Generator(device=dev).manual_seed(self.seed)
+            samp_idx = _train_sample(n_valid, m_samp, gen)
+            sample = vecs_q[samp_idx].float() * scales[samp_idx, None]
+            cent = kmeans_fit(sample, self.C, seed=self.seed, generator=gen)
+            del sample
+        else:  # rank 0 fits the k-means; the others receive its centroids
+            cent = torch.empty((self.C, d), dtype=torch.float32, device=dev)
+        self._set_centroids(from_rank0(cent, self.group))
 
         assign = self._assign(vecs_q, scales)
         if n_valid < n:
@@ -392,21 +428,28 @@ class ShardedIVFIndex:
                             "buckets (%d remain spilled)", folded, len(vecs), self.spill.count)
 
     def _rowids_host(self) -> np.ndarray | None:
+        """[C, M] row ids on the host (under a process group every rank's
+        own blocks, all_gathered in shard order)."""
         if self.rowids is None and self._rowids_dev is not None:
-            self.rowids = np.concatenate(
-                [r.cpu().numpy() for r in self._rowids_dev]).astype(np.int64)
+            own = torch.cat([self._rowids_dev[p].to(self.lead) for p in self.own])
+            if self.group is not None:
+                own = all_gather_cat(own, self.group, dim=0)
+            self.rowids = own.cpu().numpy().astype(np.int64)
         return self.rowids
 
     def _table_rows(self, cl: np.ndarray, sl: np.ndarray) -> np.ndarray:
-        """Dequantized table rows at (cluster, slot), float32 on the host."""
-        out = np.empty((len(cl), self.dim), np.float32)
+        """Dequantized table rows at (cluster, slot), float32 on the host
+        (under a process group every rank's own, summed)."""
+        out = np.zeros((len(cl), self.dim), np.float32)
         M, shard = self.M, cl // self.Cp
         for p in np.unique(shard):
+            if self.devices[p] is None:
+                continue
             pos = np.nonzero(shard == p)[0]
             flat = torch.from_numpy((cl[pos] - p * self.Cp) * M + sl[pos]).to(self.devices[p])
             rows = _flat(self.data)[p][flat].float() * _flat(self.rscales)[p][flat][:, None]
             out[pos] = rows.cpu().numpy()
-        return out
+        return sum_across(torch.from_numpy(out), self.group).numpy()
 
     # -- mutation -------------------------------------------------------------
 
@@ -481,8 +524,10 @@ class ShardedIVFIndex:
         # on every add): the same bytes its devices hold.
         codes = torch.from_numpy(self.spill._sh_rows[ssel]).to(self.lead)
         scales = torch.from_numpy(self.spill._sh_scales[ssel]).to(self.lead)
-        choice = _topk_clusters(codes, scales, self.centroids, n,
-                                min(IVFIndex.FOLD_CHOICES, C))
+        R = min(IVFIndex.FOLD_CHOICES, C)
+        choice = (_topk_clusters(codes, scales, self.centroids, n, R) if self.rank0
+                  else np.empty((n, R), np.int32))
+        choice = from_rank0(torch.from_numpy(choice), self.group).numpy()
         a_final, slot_final, sizes_fill = _capacity_fill(choice, self._sizes_h, M)
         ok = a_final >= 0
         n_fold = int(ok.sum())
@@ -647,11 +692,11 @@ class ShardedIVFIndex:
                 kk = min(max(kk, self.rerank), total, 512)
             if kk > 0:
                 use_refine = self.refine and self.resid is not None
-                q = replicate(torch.from_numpy(queries), self.devices)
-                vals, orig = zip(*(self._shard_candidates(p, q[p], kk, use_refine)
-                                   for p in range(self.P)))
-                self._table_hits(*merge_topk_across(list(vals), list(orig), kk, self.lead),
-                                 merged)
+                q = replicate(torch.from_numpy(queries), [self.devices[p] for p in self.own])
+                vals, orig = zip(*(self._shard_candidates(p, q[j], kk, use_refine)
+                                   for j, p in enumerate(self.own)))
+                self._table_hits(*merge_topk_across(list(vals), list(orig), kk, self.lead,
+                                                    self.group), merged)
         if self.spill.count:
             for qi, hits in enumerate(self.spill.search(queries, min(k, self.spill.count))):
                 for sid, v in hits:
@@ -671,13 +716,14 @@ class ShardedIVFIndex:
             kk = min(k + len(self._deleted), total)
             if kk > 0:
                 kk = min(1 << (kk - 1).bit_length(), total)
-                q = replicate(torch.from_numpy(queries), self.devices)
+                q = replicate(torch.from_numpy(queries), [self.devices[p] for p in self.own])
                 vals, orig = [], []
-                for p in range(self.P):
-                    v, fidx = _dense_topk(self.data[p], self.rscales[p], self.sizes[p], q[p], kk)
+                for j, p in enumerate(self.own):
+                    v, fidx = _dense_topk(self.data[p], self.rscales[p], self.sizes[p], q[j], kk)
                     vals.append(v)
                     orig.append(_flat(self._rowids_dev)[p][fidx])
-                self._table_hits(*merge_topk_across(vals, orig, kk, self.lead), merged)
+                self._table_hits(*merge_topk_across(vals, orig, kk, self.lead, self.group),
+                                 merged)
         if self.spill.count:
             ksp = min(k + len(self._deleted), self.spill.count)
             for qi, hits in enumerate(self.spill.search(queries, ksp)):
@@ -709,9 +755,14 @@ class ShardedIVFIndex:
         """memex_tpu's layout: an immutable base `{path}.npz` (rewritten when
         dirty; from the host shadow when the corpus came through the host,
         else gathered from the shards), `{path}.meta.json`, and the spill's
-        own segment log `{path}.spill.*`."""
+        own segment log `{path}.spill.*`. Under a process group every rank
+        writes its own copy of the same files, as every memex_tpu process
+        does; a rewrite gathers from every rank's shards, so only state that
+        every rank holds alike decides it (a base file missing on one rank
+        alone waits for the next rewrite)."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        if self._base_dirty or path != self._ckpt_path or not os.path.exists(path + ".npz"):
+        if (self._base_dirty or path != self._ckpt_path
+                or (self.group is None and not os.path.exists(path + ".npz"))):
             arrs: dict[str, np.ndarray] = {
                 "centroids": (self.centroids.cpu().numpy() if self.centroids is not None
                               else np.zeros((0, self.dim), np.float32)),
@@ -749,7 +800,7 @@ class ShardedIVFIndex:
                 arrs["cluster_ids"] = np.zeros((0,), np.str_)
                 arrs["cluster_codes"] = np.zeros((0, self.dim), np.int8)
                 arrs["cluster_scales"] = np.zeros((0,), np.float32)
-            np.savez(path + ".npz", **arrs)
+            write_atomically(path + ".npz", lambda fh: np.savez(fh, **arrs))
             self._base_dirty = False
             self._ckpt_path = path
         meta = {
@@ -766,10 +817,7 @@ class ShardedIVFIndex:
         }
         if self.mean is not None:
             meta["mean"] = [float(x) for x in self.mean]
-        tmp = path + ".meta.json.tmp"
-        with open(tmp, "w", encoding="utf-8") as fh:
-            json.dump(meta, fh)
-        os.replace(tmp, path + ".meta.json")
+        write_atomically(path + ".meta.json", lambda fh: fh.write(json.dumps(meta).encode()))
         self.spill.save(path + ".spill")
 
     def restore(self, path: str) -> int:

@@ -191,12 +191,18 @@ class TorchRuntime:
         optimization, so per-ingest O(count) saves are wasted work)."""
         if interval_s is None:
             interval_s = self.settings.checkpoint_interval_s
-        now = time.monotonic()
-        with self._lock:
-            last = self._last_ckpt.get(collection)
-            if last is not None and now - last < interval_s:
-                return False
-            self._last_ckpt[collection] = now
+        # A store over a process group decides from what every rank holds
+        # alike (store/mesh_store.py); None leaves it to this clock.
+        due = getattr(store, "checkpoint_due", lambda: None)()
+        if due is None:
+            now = time.monotonic()
+            with self._lock:
+                last = self._last_ckpt.get(collection)
+                due = last is None or now - last >= interval_s
+                if due:
+                    self._last_ckpt[collection] = now
+        if not due:
+            return False
         store.checkpoint()
         return True
 

@@ -2,7 +2,9 @@
 and TpuMeshIVFStore): `tpu+mesh://` puts a ShardedFlatIndex, and
 `tpu+ivf+mesh://` a ShardedIVFIndex, over every card of the runtime's
 device type (parallel/mesh.py::local_mesh), with memex_tpu's checkpoint
-files, lazy calibration and maintenance rules."""
+files, lazy calibration and maintenance rules. After init_multihost the
+index spans the process group: these cards are this rank's shards, and
+every rank keeps its own copy of the checkpoint files."""
 
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 from ..index.sharded import ShardedFlatIndex
 from ..index.sharded_ivf import ShardedIVFIndex
 from ..log import get_logger
+from ..parallel.collectives import check_same
+from ..parallel.distributed import default_group
 from ..parallel.mesh import local_mesh
 from .base import SearchHit
 from .flat_store import TpuFlatStore
@@ -23,7 +27,41 @@ from .ivf_store import TpuIVFStore
 logger = get_logger(__name__)
 
 
-class TpuMeshStore(TpuFlatStore):
+class _RankedCheckpoints:
+    """Checkpoint rules of a store whose index may span a process group.
+
+    Every rank restores and saves its own copy of the same files, and the
+    sharded IVF's save and restore meet the other ranks at collectives, so
+    every rank must make the same choices. A clock or a file differs
+    between ranks; the ingests do not, since every rank takes the same ones
+    in the same order. So under a group a store saves after its first
+    ingest and every CHECKPOINT_EVERY-th after it (the runtime's clock
+    decides on one controller), and the ranks check that they restore the
+    same checkpoint, raising when they do not."""
+
+    CHECKPOINT_EVERY = 256
+    _ingests = 0
+
+    def checkpoint_due(self) -> bool | None:
+        """Whether this ingest's checkpoint is due, from the count of
+        ingests (None on one controller: the runtime's clock decides)."""
+        if self.index.group is None:
+            return None
+        with self._lock:
+            due = self._ingests % self.CHECKPOINT_EVERY == 0
+            self._ingests += 1
+        return due
+
+    def _restore_if_saved(self, kind: str) -> None:
+        group = self.index.group
+        saved = bool(self._path) and os.path.exists(self._path + ".meta.json")
+        if not check_same(saved, group, f"whether {self._path} holds a checkpoint"):
+            return
+        n = check_same(self.index.restore(self._path), group, f"the rows of {self._path}")
+        logger.info("restored %s collection %s (%d vectors)", kind, self.collection, n)
+
+
+class TpuMeshStore(_RankedCheckpoints, TpuFlatStore):
     """Flat store with its rows sharded over the local cards and a top-k
     merge on the first (`tpu+mesh://`)."""
 
@@ -37,18 +75,17 @@ class TpuMeshStore(TpuFlatStore):
             os.makedirs(base_dir, exist_ok=True)
             self._path = os.path.join(base_dir, f"{collection}.mesh")
         self.index = ShardedFlatIndex(dim, local_mesh(device),
-                                      capacity_per_shard=capacity_per_shard, **kw)
+                                      capacity_per_shard=capacity_per_shard,
+                                      group=default_group(), **kw)
         self._doc_of: dict[str, str] = {}
-        if self._path and os.path.exists(self._path + ".meta.json"):
-            n = self.index.restore(self._path)
-            logger.info("restored mesh collection %s (%d vectors)", collection, n)
+        self._restore_if_saved("mesh")
 
     @property
     def count(self) -> int:
         return self.index.count
 
 
-class TpuMeshIVFStore(TpuIVFStore):
+class TpuMeshIVFStore(_RankedCheckpoints, TpuIVFStore):
     """IVF store with its clusters sharded over the local cards
     (`tpu+ivf+mesh://`): TpuIVFStore's calibration and maintenance, with
     memex_tpu's spill rule for this tier and the rebuild that a search
@@ -72,11 +109,9 @@ class TpuMeshIVFStore(TpuIVFStore):
             os.makedirs(base_dir, exist_ok=True)
             self._path = os.path.join(base_dir, f"{collection}.ivfmesh")
         self.index = ShardedIVFIndex(dim, local_mesh(device), n_clusters=n_clusters,
-                                     nprobe=nprobe, **kw)
+                                     nprobe=nprobe, group=default_group(), **kw)
         self._doc_of: dict[str, str] = {}
-        if self._path and os.path.exists(self._path + ".meta.json"):
-            n = self.index.restore(self._path)
-            logger.info("restored sharded-IVF collection %s (%d vectors)", collection, n)
+        self._restore_if_saved("sharded-IVF")
 
     def search_batch(self, vectors: np.ndarray, limit: int) -> list[list[SearchHit]]:
         out = super().search_batch(vectors, limit)

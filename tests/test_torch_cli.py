@@ -102,6 +102,30 @@ def test_load_wait_then_train_exports_and_prints_metrics(env, capsys):
     assert m2["step"] == 2 and m2["pairs"] == m["pairs"]
 
 
+def test_load_wait_past_its_timeout_exits_1_and_stops_the_worker(env, monkeypatch):
+    """A deliberate departure from memex_tpu, whose `load --wait` exits 0
+    whatever the drain returned: a queue not drained by --timeout exits 1,
+    and the worker is shut down (its scheduler flag set, its pool closed)
+    with the task still queued."""
+    from memex_tpu_torch.worker import Worker
+
+    stopped = []
+    shutdown = Worker.shutdown
+
+    def record(self, wait=True):
+        stopped.append(self)
+        shutdown(self, wait)
+
+    monkeypatch.setattr(Worker, "shutdown", record)
+    doc = env / "doc.txt"
+    doc.write_text("a document the worker never reaches")
+    assert cli.main(["load", "late", str(doc), "--wait", "--timeout", "0",
+                     "--device", "cpu"]) == 1
+    assert len(stopped) == 1
+    assert stopped[0]._shutdown.is_set() and stopped[0]._pool._shutdown
+    assert _queue_count(env / "cli.db", "late") == 1
+
+
 def test_download_model_with_the_files_present(tmp_path):
     target = tmp_path / "m"
     target.mkdir()
