@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from the sources in this checkout and drives
 the ingest-and-search path of every flat tier, the IVF tier and the
 sharded tiers (on one controller and on two ranks of a process group), the
-local LLM and encoder fine-tuning, failing (non-zero exit, no result line)
+local LLM, encoder fine-tuning and the encoder's bulk and data-parallel
+ingest, failing (non-zero exit, no result line)
 on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
@@ -109,13 +110,34 @@ on any failed phase:
      sent to both at once): identical hits, one K1 launch a rank a search,
      a clean shutdown with each rank's own copy of the same checkpoint. A
      rank that fails or runs past its time fails the phase.
+  9. the encoder's ingest paths and the last scoring entry points: 16,384
+     generated windows at all-MiniLM-L12-v2 width (phase 2's checkpoint,
+     bf16 compute, L = 256, max_batch = 512) through `_encode_padded`,
+     which must take the bulk path, once for each fetch dtype (float32,
+     float16, bfloat16): windows/s and the bulk path's dispatch_s /
+     device_sync_s / fetch_s beside the bound (the encoder's matmul
+     operations at 989 TFLOP/s bf16), the float32 pass's busy share
+     (torch.profiler) and its difference from the chunked path; the
+     float16 and bfloat16 outputs must be the float32 output rounded, bit
+     for bit; then the data-parallel encode over [cuda:0, cuda:0] (and
+     every card, where there are several) against one device on 1,000
+     windows. On 1,048,576 x 384 float32 rows drawn on the card:
+     FlatIndex.search at Q = 1 / 32 / 128 through ops.host.fetch, hits
+     equal to those of .cpu() copies, ms beside phase 3's; score_topk at
+     Q = 128 (exact_f32 equal to the float32 oracle; blockwise, exact and
+     approx bit-equal to each other, recall@10 >= 0.99), each method's
+     ms; the int8q rerank on the rows' int8 codes (phase 1's count and
+     ~1% dead rows) at Q = 1 / 32 / 128: one K2 launch a call, its bank
+     bit-equal to the plain version's, the top-10 equal to the plain
+     version's, no dead row among the hits, recall@10 at Q = 128 at or
+     above K2's own top list, ms beside it.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
 each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
 searches for K3 and K4, phase 5's sharded path for K1-K5, phase 7's
-server on the fine-tuned encoder for K1, and phase 8's two ranks for
-K1-K5), errors (phase 5's and phase 8's shard banks included) and times at Q = 32: the kernel's, its
+server on the fine-tuned encoder for K1, phase 8's two ranks for K1-K5,
+and phase 9's searches for K1 and its int8q reranks for K2), errors (phase 5's and phase 8's shard banks included) and times at Q = 32: the kernel's, its
 plain version's, its bound (the larger of the bytes it must move at 3.35
 TB/s and its operations at the card's peak for their type, live rows
 only) and one PyTorch call computing the same product on operands laid
@@ -794,8 +816,9 @@ def clustered_rows(n: int, centres, gen, block: int = 1 << 20):
     return out
 
 
-def oracle_topk(q, corpus, k: int = IVF_K, block: int = 1 << 20):
-    """Exact float32 top-k ids of q against the corpus, blockwise."""
+def oracle_scores(q, corpus, k: int = IVF_K, block: int = 1 << 20):
+    """Exact float32 top-k (values, ids) of q against the corpus, blockwise,
+    on the card."""
     import torch
 
     best_v = best_i = None
@@ -807,7 +830,12 @@ def oracle_topk(q, corpus, k: int = IVF_K, block: int = 1 << 20):
             v, j = torch.topk(torch.cat([best_v, v], 1), k, dim=1)
             i = torch.gather(torch.cat([best_i, i], 1), 1, j)
         best_v, best_i = v, i
-    return best_i.cpu().numpy()
+    return best_v, best_i
+
+
+def oracle_topk(q, corpus, k: int = IVF_K, block: int = 1 << 20):
+    """Exact float32 top-k ids of q against the corpus, blockwise."""
+    return oracle_scores(q, corpus, k, block)[1].cpu().numpy()
 
 
 def recall_at_k(hits, oracle) -> float:
@@ -2594,6 +2622,241 @@ def phase8(label: str, seed: int, work: str) -> tuple[dict, dict]:
     return launches, errs
 
 
+# -- phase 9 -------------------------------------------------------------------
+
+# Ingest at all-MiniLM-L12-v2 width as the service runs it (bf16 compute,
+# L = 256, max_batch = 512): 16,384 windows, 32 super-chunks of the bulk path.
+INGEST_N = 16384
+INGEST_BATCH = 512
+FETCH_DTYPES = ("float32", "float16", "bfloat16")
+DP_N = 1000  # no multiple of the 512-row bucket
+# Data-parallel against one device, bf16 compute: each block runs its rows
+# in a GEMM of another shape, which may sum in another order; one flipped
+# bf16 rounding of a hidden state moves a unit vector's entries by ~1e-3.
+DP_TOL = 2e-3
+BF16_PEAK = 989e12  # dense bf16 tensor-core operations a second (H100 SXM)
+RERANK_TOL = 1e-5
+
+
+def encoder_flop_per_window(cfg, length: int) -> int:
+    """The encoder's matmul operations for one window, as bench.py:1315-1322
+    counts them: per token, 12 layers of Q/K/V/output projections (4 D^2
+    multiply-adds) and the FFN (2 D I), plus the attention products (2 L D
+    a layer), 2 operations a multiply-add; every position of the window
+    runs, padding included."""
+    per_tok = (2 * cfg.num_layers * (4 * cfg.hidden_size ** 2
+                                     + 2 * cfg.hidden_size * cfg.intermediate_size)
+               + 4 * cfg.num_layers * length * cfg.hidden_size)
+    return per_tok * length
+
+
+def ingest_windows(n: int, length: int, vocab: int, pad_id: int, seed: int):
+    """[n, length] int32 token ids and mask: 32 to `length` random ids a
+    window, padded with pad_id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(32, length + 1, size=n)
+    mask = (np.arange(length)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(1, vocab, size=(n, length)).astype(np.int32)
+    return np.where(mask > 0, ids, pad_id).astype(np.int32), mask
+
+
+def recall_ids(got, oracle) -> float:
+    """Mean share of each oracle row's ids among got's (both [Q, k])."""
+    got, oracle = got.cpu().tolist(), oracle.cpu().tolist()
+    return sum(len(set(g) & set(o)) / len(o) for g, o in zip(got, oracle)) / len(oracle)
+
+
+def phase9_ingest(label: str, seed: int, model_dir: str, dev) -> None:
+    """The bulk path per fetch dtype, against the chunked path, then the
+    data-parallel encode over [dev, dev] (and every card, where there are
+    several) against one device."""
+    import numpy as np
+    import torch
+
+    from memex_tpu_torch.embed import EmbeddingEngine
+
+    outs = {}
+    for dtype in FETCH_DTYPES:
+        eng = EmbeddingEngine(model_dir, max_batch=INGEST_BATCH, device=dev, fetch_dtype=dtype)
+        L = eng.max_seq_length
+        if not outs:
+            ids, mask = ingest_windows(INGEST_N, L, eng.cfg.vocab_size, eng.tokenizer.pad_id,
+                                       seed + 9)
+        phases: dict = {}
+        bulk = eng._encode_bulk
+        eng._encode_bulk = lambda i, m, o: bulk(i, m, o, phases=phases)  # its telemetry
+        eng._encode_padded(ids, mask)  # first use of the shapes
+        phases.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vecs = eng._encode_padded(ids, mask)
+        wall = time.perf_counter() - t0
+        check(set(phases) == {"dispatch_s", "device_sync_s", "fetch_s"},
+              f"{dtype}: _encode_padded did not take _encode_bulk")
+        check(vecs.shape == (INGEST_N, eng.dim) and vecs.dtype == np.float32
+              and bool(np.isfinite(vecs).all()), f"{dtype}: bad ingest output")
+        norms = np.linalg.norm(vecs, axis=1)
+        check(float(np.abs(norms - 1).max()) < 1e-2, f"{dtype}: vectors are not unit norm")
+        outs[dtype] = vecs
+        flop = INGEST_N * encoder_flop_per_window(eng.cfg, L)
+        print(f"[{label}] phase9 ingest fetch_dtype={dtype} windows={INGEST_N} L={L} "
+              f"B={INGEST_BATCH} seconds={wall:.4f} windows_per_s={INGEST_N / wall:.1f} "
+              f"dispatch_s={phases['dispatch_s']:.4f} device_sync_s="
+              f"{phases['device_sync_s']:.4f} fetch_s={phases['fetch_s']:.4f} "
+              f"bound_windows_per_s={INGEST_N / (flop / BF16_PEAK):.1f} (encoder matmuls "
+              f"{flop / INGEST_N / 1e9:.2f} GFLOP a window at {BF16_PEAK / 1e12:.0f} TFLOP/s "
+              f"bf16)", flush=True)
+        if dtype == "float32":
+            dev_ms, wall_ms, n = device_busy(lambda: eng._encode_padded(ids, mask))
+            print(f"[{label}] phase9 ingest float32 busy_share={dev_ms / wall_ms:.3f} "
+                  f"(device {dev_ms:.2f} ms of {wall_ms:.2f} ms, {n} kernels)", flush=True)
+            for name, k_ms, count in top_kernels(lambda: eng._encode_padded(ids, mask)):
+                print(f"[{label}] phase9 ingest float32 kernel ms={k_ms:.2f} "
+                      f"launches={count} {name[:90]}", flush=True)
+            # The chunked path on the same ids: pieces of 7 x 512 windows,
+            # each below the bulk threshold, in the bulk path's 512-row groups.
+            piece = 7 * INGEST_BATCH
+            chunked = np.concatenate([eng._encode_padded(ids[lo : lo + piece],
+                                                         mask[lo : lo + piece])
+                                      for lo in range(0, INGEST_N, piece)])
+            diff = float(np.abs(chunked - vecs).max())
+            print(f"[{label}] phase9 ingest bulk vs chunked float32 max_abs_diff={diff:.3e}",
+                  flush=True)
+            check(diff <= DP_TOL, f"bulk and chunked paths differ by {diff:.3e}")
+        del eng
+    for dtype in FETCH_DTYPES[1:]:
+        want = torch.from_numpy(outs["float32"]).to(getattr(torch, dtype)).float().numpy()
+        check(np.array_equal(outs[dtype], want),
+              f"the {dtype} fetch is not the float32 output rounded on the device")
+        print(f"[{label}] phase9 ingest {dtype} output == float32 output rounded to {dtype}: "
+              f"bit_equal=True", flush=True)
+
+    one = EmbeddingEngine(model_dir, max_batch=INGEST_BATCH, device=dev)
+    want = one._encode_padded(ids[:DP_N], mask[:DP_N])
+    del one
+    lists = [[dev, dev]]
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        lists.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    for devices in lists:
+        eng = EmbeddingEngine(model_dir, max_batch=INGEST_BATCH, device=dev, devices=devices)
+        got = eng._encode_padded(ids[:DP_N], mask[:DP_N])
+        diff = float(np.abs(got - want).max())
+        names = ",".join(str(d) for d in devices)
+        print(f"[{label}] phase9 data-parallel devices=[{names}] windows={DP_N} replicas="
+              f"{len({id(r) for r in eng._replicas})} max_abs_diff_vs_one_device={diff:.3e} "
+              f"(bar {DP_TOL})", flush=True)
+        check(diff <= DP_TOL, f"data-parallel encode differs by {diff:.3e} > {DP_TOL}")
+        del eng
+
+
+def phase9(label: str, seed: int, work: str, flat_ms: dict, device: str = "cuda:0") -> dict:
+    """Ingest (phase9_ingest), then on 1,048,576 x 384 float32 rows drawn on
+    the card: FlatIndex.search through ops.host.fetch against .cpu()
+    copies, score_topk's four methods against the float32 oracle, and the
+    int8q rerank (K2) against its plain version. Returns the launches of
+    K1 and K2 in the searches and reranks."""
+    import torch
+
+    from memex_tpu_torch.index import flat as flat_mod
+    from memex_tpu_torch.index.flat import FlatIndex
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.ops.topk import score_topk
+
+    dev = torch.device(device)
+    phase9_ingest(label, seed, os.path.join(work, "model"), dev)
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(ft.LAUNCHES, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    db = unit_rows(N_ROWS, DIM, gen, dev)
+    src = torch.randperm(N_ROWS, generator=gen, device=dev)[:128]
+    q = db[src] + 0.05 / DIM ** 0.5 * torch.randn((128, DIM), generator=gen, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    q_np = q.cpu().numpy()
+
+    # ops.host.fetch: FlatIndex.search's copies back.
+    index = FlatIndex(DIM, capacity=N_ROWS, device=dev)
+    index.add(db.cpu().numpy(), [f"r{i}" for i in range(N_ROWS)])
+
+    def cpu_copies(*tensors):
+        return tuple(t.cpu().numpy() for t in tensors)
+
+    for Q in TIMED_Q:
+        ft.reset_launches()
+        hits = index.search(q_np[:Q], 10)
+        launches["fused_topk"] += ft.LAUNCHES["fused_topk"]
+        check(ft.LAUNCHES["fused_topk"] == 1, f"FlatIndex.search Q={Q} launched K1 "
+              f"{ft.LAUNCHES['fused_topk']}x")
+        fetch = flat_mod.fetch
+        flat_mod.fetch = cpu_copies
+        try:
+            ref = index.search(q_np[:Q], 10)
+        finally:
+            flat_mod.fetch = fetch
+        check(hits == ref, f"FlatIndex.search Q={Q}: hits through fetch differ from .cpu()")
+        print(f"[{label}] phase9 fetch FlatIndex.search float32 Q={Q} hits == .cpu() copies' "
+              f"median_ms={search_ms(index, q_np[:Q]):.3f} (phase 3: {flat_ms[Q]:.3f})",
+              flush=True)
+    del index
+    torch.cuda.empty_cache()
+
+    # score_topk at Q = 128, k = 10.
+    ov, oi = oracle_scores(q, db)
+    methods = {}
+    for method in ("exact_f32", "exact", "blockwise", "approx"):
+        v, i = score_topk(db, q, 10, method=method)
+        ms = cuda_ms(lambda: score_topk(db, q, 10, method=method), runs=5, warmup=1)
+        methods[method] = (v, i)
+        print(f"[{label}] phase9 score_topk method={method} Q=128 rows={N_ROWS} "
+              f"ms={ms:.3f} recall_at_10_vs_f32_oracle={recall_ids(i, oi):.4f}", flush=True)
+    v, i = methods["exact_f32"]
+    check(torch.equal(i.long(), oi) and torch.equal(v, ov),
+          "score_topk exact_f32 differs from the float32 oracle")
+    for method in ("exact", "approx"):
+        check(all(torch.equal(a, b) for a, b in zip(methods[method], methods["blockwise"])),
+              f"score_topk {method} differs from blockwise")
+    rec = recall_ids(methods["blockwise"][1], oi)
+    check(rec >= 0.99, f"score_topk bf16 methods: recall@10 {rec:.4f} < 0.99")
+
+    # K2 under the int8q rerank: ~1% dead rows, count = N - 12345.
+    codes, scales = ft.quantize_rows_int8(db)
+    alive = (torch.rand(N_ROWS, generator=gen, device=dev) > 0.01).float()
+    count = N_ROWS - 12345
+    live = (torch.arange(N_ROWS, device=dev) < count) & (alive > 0)
+    oracle = torch.topk(torch.where(live, q @ db.T, -float("inf")), 10, dim=1).indices
+    del db
+    torch.cuda.empty_cache()
+    kw = dict(count=count, alive=alive)
+    for Q in TIMED_Q:
+        qq = q[:Q]
+        ft.reset_launches()
+        kv, ki = ft.fused_score_topk_int8q_rerank(codes, scales, qq, 10, **kw)
+        n = ft.LAUNCHES["fused_topk_int8q"]
+        launches["fused_topk_int8q"] += n
+        check(n == 1, f"int8q rerank Q={Q} launched K2 {n}x")
+        q8, _ = ft.quantize_rows_int8(qq)
+        bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, banks=4, **kw)
+        plain = ft.int8q_bank_reference(codes, scales, q8, banks=4, **kw)
+        bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"int8q rerank coarse bank Q={Q}")
+        pv, pi = ft.fused_score_topk_int8q_rerank_reference(codes, scales, qq, 10, **kw)
+        err = (kv - pv).abs().max().item()
+        check(torch.equal(ki, pi) and err <= RERANK_TOL,
+              f"int8q rerank Q={Q}: ids differ or values by {err:.3e}")
+        check(bool((alive[ki.long()] > 0).all()) and int(ki.max()) < count,
+              f"int8q rerank Q={Q}: a dead or unfilled row among the hits")
+        _, ci = ft.fused_score_topk_int8q(codes, scales, qq, 10, banks=4, **kw)
+        rr, rc = recall_ids(ki, oracle[:Q]), recall_ids(ci, oracle[:Q])
+        ms = cuda_ms(lambda: ft.fused_score_topk_int8q_rerank(codes, scales, qq, 10, **kw))
+        c_ms = cuda_ms(lambda: ft.fused_score_topk_int8q(codes, scales, qq, 10, banks=4, **kw))
+        print(f"[{label}] phase9 int8q rerank Q={Q} K2_launches={n} coarse_bank_bit_equal=True "
+              f"max_abs_err_vs_plain={err:.3e} recall_at_10_vs_f32_oracle={rr:.4f} "
+              f"(int8q alone {rc:.4f}) ms={ms:.4f} (int8q alone {c_ms:.4f})", flush=True)
+        if Q == max(TIMED_Q):
+            check(rr >= rc, f"int8q rerank recall@10 {rr:.4f} below int8q's {rc:.4f}")
+    return launches
+
+
 def add_path(launches: dict, stats: dict, path: dict, errs: dict, what: str) -> None:
     """Fold a path's launches and bank errors into the kernels line: each of
     K1-K5 must have launched on it."""
@@ -2653,6 +2916,7 @@ def main(argv: list[str] | None = None) -> int:
                                         scheme="tpu+ivf", n_docs=1200)}
             phase_done(2)
             launches, flat = phase3(label, args.seed, work)
+            flat_ms = flat["ms"]["float32"]
             phase_done(3)
             ivf_launches, ivf_stats, ivf10m = phase4(label, args.seed, work)
             stats.update(ivf_stats)
@@ -2679,6 +2943,11 @@ def main(argv: list[str] | None = None) -> int:
             ranked, errs = phase8(label, args.seed, work)
             add_path(launches, stats, ranked, errs, "the two-rank path")
             phase_done(8)
+            # Phase 9, the ingest paths, ops.host.fetch, score_topk and the
+            # int8q rerank; its searches run K1 and its reranks K2.
+            for name, n in phase9(label, args.seed, work, flat_ms).items():
+                launches[name] += n
+            phase_done(9)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"[{label}] smoke seconds={time.perf_counter() - t_all:.1f}", flush=True)

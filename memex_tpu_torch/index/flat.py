@@ -49,6 +49,7 @@ from ..ops.fused_topk import (
     pack_int4_from_int8,
     scores_f32,
 )
+from ..ops.host import fetch
 from ..ops.topk import blockwise_topk, exact_topk
 
 logger = get_logger(__name__)
@@ -567,7 +568,7 @@ class FlatIndex:
         off = None
         if self.mean is not None and self.mean.any():
             off = queries @ self.mean
-        out = self._hits_from(vals.cpu().numpy(), idx.cpu().numpy(), queries.shape[0], off)
+        out = self._hits_from(*fetch(vals, idx), queries.shape[0], off)
         if use_fused and self.dead:
             # Shortfall: tombstones crowded the candidate bank. Re-run on
             # the plain path, which masks dead rows before its top-k.
@@ -575,8 +576,7 @@ class FlatIndex:
             if any(len(h) < expect for h in out):
                 logger.info("fused search shortfall under deletes; exact rerun")
                 vals, idx = self._plain(q, k_eff, k_ret, exact)
-                out = self._hits_from(vals.cpu().numpy(), idx.cpu().numpy(),
-                                      queries.shape[0], off)
+                out = self._hits_from(*fetch(vals, idx), queries.shape[0], off)
         return out
 
     def _hits_from(self, vals, idx, q_n: int,

@@ -2,15 +2,17 @@
 
 The sources under `csrc/` are compiled at first use with `nvcc`, one
 process per `.cu` file, all started together, and linked into one shared
-library with a plain C interface, loaded through `ctypes`. The library
-lands in `build/memex_tpu_torch/` at the repository root (listed in
-.gitignore), named by a hash of the sources, so an edited source rebuilds
-and an unchanged one is reused. Nothing here runs at import: a CPU-only
-host imports the package without a CUDA toolkit.
+library with a plain C interface, loaded through `ctypes`. The library is
+named by a hash of the sources, so an edited source rebuilds and an
+unchanged one is reused. Where it lands is MEMEX_COMPILE_CACHE's choice,
+the variable memex_tpu's `serve` reads for XLA's persistent cache (see
+`build_dir`). Nothing here runs at import: a CPU-only host imports the
+package without a CUDA toolkit.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import glob
 import hashlib
@@ -32,6 +34,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_temp_lock = threading.Lock()
+_temp_dir: str | None = None
+
+
+def build_dir() -> str:
+    """The build directory, chosen by MEMEX_COMPILE_CACHE as memex_tpu's
+    `serve` chooses its compile cache: unset, `build/memex_tpu_torch/` at
+    the repository root (listed in .gitignore); `off`, `0`, `none` or
+    empty, a temporary directory of this process, removed at exit; any
+    other value, that directory."""
+    global _temp_dir
+    value = os.environ.get("MEMEX_COMPILE_CACHE")
+    if value is None:
+        return BUILD_DIR
+    if value.lower() in ("off", "0", "none", ""):
+        with _temp_lock:
+            if _temp_dir is None:
+                _temp_dir = tempfile.mkdtemp(prefix="memex_kernels_")
+                atexit.register(shutil.rmtree, _temp_dir, True)
+            return _temp_dir
+    return os.path.abspath(os.path.expanduser(value))
 
 
 def _sources() -> list[str]:
@@ -57,7 +80,7 @@ def library_path() -> str:
         with open(path, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmemex_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"libmemex_kernels_{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
@@ -66,9 +89,9 @@ def build() -> str:
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
         objs, procs = [], []
         for src in (p for p in _sources() if p.endswith(".cu")):
             obj = os.path.join(tmp, os.path.basename(src) + ".o")

@@ -9,7 +9,9 @@ then sorts the [Q, S] (keep2: [Q, 2S]) bank stably to the top-k, as the
 JAX wrappers do outside their kernels.
 
   K1 `fused_score_topk`        float32/bfloat16 rows (`_fused_kernel`)
-  K2 `fused_score_topk_int8q`  int8 rows, int8 queries (`_fused_kernel_int8q`)
+  K2 `fused_score_topk_int8q`  int8 rows, int8 queries (`_fused_kernel_int8q`),
+                               also the coarse stage of
+                               `fused_score_topk_int8q_rerank`
   K3 `fused_score_topk_int8`   int8 rows, bf16 queries (`_fused_kernel_int8`)
   K4 `int4q_candidates`        packed int4 rows (`_fused_kernel_int4q`), the
                                coarse stage of `fused_score_topk_int4_rerank`
@@ -27,7 +29,7 @@ import torch
 
 from ..metrics import METRICS
 
-from .topk import exact_topk
+from .topk import exact_topk, scores_f32
 
 NEG_INF = -1e30
 _LANES = 128
@@ -90,22 +92,6 @@ def _check_quant(codes: torch.Tensor, scales: torch.Tensor, queries: torch.Tenso
         raise ValueError("scales must be a float32 [N] tensor on the codes' device")
     _check_queries(queries, dim, codes.device)
     _check_rows(codes, alive, banks)
-
-
-def scores_f32(queries: torch.Tensor, rows_t: torch.Tensor, exact: bool) -> torch.Tensor:
-    """queries [..., Q, D] @ rows_t [..., D, N] as a float32 matmul. Non-exact
-    mode rounds both inputs to bf16 first (a bf16 x bf16 product is exact in
-    float32, so this is the bf16-in, f32-accumulate dot of the kernels);
-    exact mode keeps float32 inputs. Neither may run in TF32. Integer-valued
-    inputs give the exact integer dot in either mode while every partial
-    sum stays below 2^24."""
-    if queries.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("float32 scoring needs true float32 matmuls: "
-                           "torch.backends.cuda.matmul.allow_tf32 is on")
-    if not exact:
-        queries = queries.to(torch.bfloat16)
-        rows_t = rows_t.to(torch.bfloat16)
-    return queries.float() @ rows_t.float()
 
 
 def _limit(n: int, count) -> int:
@@ -382,6 +368,30 @@ def fused_score_topk_int8q(db_q: torch.Tensor, scales: torch.Tensor, queries: to
     return _int8q_topk(bank, q_scales, k)
 
 
+def fused_score_topk_int8q_rerank(db_q: torch.Tensor, scales: torch.Tensor,
+                                  queries: torch.Tensor, k: int, count=None, alive=None, *,
+                                  rerank: int = 64, banks: int = 4):
+    """K2's coarse scan, then a bf16-query rerank on the same int8 rows
+    (memex_tpu's `fused_score_topk_int8q_rerank`): the top R = min(rerank,
+    banks * 128) of the int8-query scan, with `alive` masking tombstones
+    inside the scan, re-scored by `_rerank`. (db_q [N, D] int8, scales [N]
+    float32, queries [Q, D] float32) -> (vals [Q, k], idx [Q, k]).
+    memex_tpu's `block_n` and `interpret` set the TPU kernel's tiling and
+    its interpreter; K2's CUDA kernel has neither, so they are dropped."""
+    r = min(rerank, banks * _LANES)
+    cvals, cand = fused_score_topk_int8q(db_q, scales, queries, r, count, alive, banks=banks)
+    return _rerank(cvals, cand, db_q, scales, queries, k, alive)
+
+
+def fused_score_topk_int8q_rerank_reference(db_q, scales, queries, k: int, count=None,
+                                            alive=None, *, rerank: int = 64, banks: int = 4):
+    """Plain PyTorch version of `fused_score_topk_int8q_rerank`."""
+    r = min(rerank, banks * _LANES)
+    cvals, cand = fused_score_topk_int8q_reference(db_q, scales, queries, r, count, alive,
+                                                   banks=banks)
+    return _rerank(cvals, cand, db_q, scales, queries, k, alive)
+
+
 # -- K3: int8 rows, bf16 queries -----------------------------------------------
 
 
@@ -557,14 +567,12 @@ def int4q_candidates(db_p: torch.Tensor, scales8: torch.Tensor, queries: torch.T
               keep2=keep2)
 
 
-def _int4_rerank(cand_vals, cand_idx, db8, scales8, queries, k: int, alive, rerank: int):
-    """Top-R of the coarse bank, re-scored exactly against the int8 rows
-    (bf16 inputs, float32 accumulate, times the int8 scale), then a stable
-    top-k. Dead and masked candidates score -1e30."""
-    r = min(rerank, cand_vals.shape[1])
-    order = torch.sort(-cand_vals, dim=1, stable=True).indices[:, :r]
-    cvals = torch.gather(cand_vals, 1, order)
-    cand = torch.gather(cand_idx, 1, order).long()  # [Q, R]
+def _rerank(cvals, cand, db8, scales8, queries, k: int, alive):
+    """Coarse candidates cand [Q, R] (their values cvals), re-scored exactly
+    against the int8 rows: bf16 queries x int8 rows, float32 accumulate,
+    times the row scale; then a stable top-k (ties to the lower slot, as
+    `lax.top_k`). Slots the coarse scan masked and dead rows score -1e30."""
+    cand = cand.long()
     rows = db8[cand]                                 # [Q, R, D]
     rer = scores_f32(queries[:, None, :], rows.transpose(1, 2), exact=False)[:, 0]
     rer = rer * scales8[cand]
@@ -574,6 +582,14 @@ def _int4_rerank(cand_vals, cand_idx, db8, scales8, queries, k: int, alive, rera
     rer = torch.where(ok, rer, NEG_INF)
     vals, args = exact_topk(rer, k)
     return vals, torch.gather(cand, 1, args.long()).to(torch.int32)
+
+
+def _int4_rerank(cand_vals, cand_idx, db8, scales8, queries, k: int, alive, rerank: int):
+    """Top-R of the coarse bank (a stable order), then `_rerank`."""
+    r = min(rerank, cand_vals.shape[1])
+    order = torch.sort(-cand_vals, dim=1, stable=True).indices[:, :r]
+    return _rerank(torch.gather(cand_vals, 1, order), torch.gather(cand_idx, 1, order),
+                   db8, scales8, queries, k, alive)
 
 
 def fused_score_topk_int4_rerank(db_p: torch.Tensor, scales8: torch.Tensor, db8: torch.Tensor,

@@ -33,6 +33,7 @@ from ..index.flat import (
     _search_plain,
     _search_rerank_fused,
 )
+from ..ops.host import fetch
 
 logger = get_logger(__name__)
 
@@ -108,7 +109,7 @@ class _Dispatched:
     def finish(self) -> list:
         out = []
         for vals_d, rows_d, ids_snapshot, count, n_texts, k in self.parts:
-            vals, rows = vals_d.cpu().numpy(), rows_d.cpu().numpy()
+            vals, rows = fetch(vals_d, rows_d)  # one wait for the pair
             for qi in range(n_texts):
                 hits = []
                 for v, r in zip(vals[qi], rows[qi]):

@@ -165,3 +165,74 @@ def test_profile_trace_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
     assert len(files) == 2 and all(f.startswith("batch.encode.") for f in files)
     events = json.loads((tmp_path / "traces" / files[0]).read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+
+
+class _Reply:
+    def __init__(self, ok: bool):
+        self.ok, self.text = ok, "" if ok else "refused"
+
+
+@pytest.mark.parametrize("exists,accept", [(True, True), (False, True), (False, False)])
+def test_qdrant_helper_sends_memex_tpus_requests(exists, accept, monkeypatch):
+    """The port's copy of store/qdrant_helper.py makes the same REST calls
+    as memex_tpu's (recorded through a stub of `requests`; no server) and
+    gives the same answers."""
+    import requests
+
+    from memex_tpu.store import qdrant_helper as jax_qdrant
+    from memex_tpu_torch.store import qdrant_helper as qdrant
+
+    log: list = []
+
+    def get(url, timeout):
+        log.append(("GET", url, timeout))
+        if url.endswith("/healthz") and not accept:
+            raise requests.ConnectionError("down")
+        return _Reply(exists or url.endswith("/healthz"))
+
+    def put(url, json, timeout):
+        log.append(("PUT", url, json, timeout))
+        return _Reply(accept)
+
+    monkeypatch.setattr(requests, "get", get)
+    monkeypatch.setattr(requests, "put", put)
+    runs = []
+    for mod in (jax_qdrant, qdrant):
+        log.clear()
+        helper = mod.QdrantHelper("http://localhost:6333/", timeout=2.5)
+        answers = (helper.healthy(), helper.ensure_collection("docs"),
+                   helper.ensure_collection("small", dim=8, on_disk=False))
+        runs.append((answers, list(log)))
+    assert runs[0] == runs[1]
+    assert runs[1][0] == (accept, exists or accept, exists or accept)
+    assert qdrant.DEFAULT_DIM == jax_qdrant.DEFAULT_DIM == 384
+
+
+@pytest.mark.parametrize("value", [None, "off", "OFF", "0", "none", "", "cache"])
+def test_compile_cache_picks_the_kernel_build_directory(value, tmp_path, monkeypatch):
+    """MEMEX_COMPILE_CACHE, read as memex_tpu's `serve` reads it for XLA's
+    cache, places the port's kernel library: unset, the repository's
+    git-ignored build/memex_tpu_torch/; off/0/none/empty, one temporary
+    directory of the process; any other value, that directory."""
+    import os
+    import tempfile
+
+    from memex_tpu_torch import kernels
+
+    repo_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "build", "memex_tpu_torch")
+    if value is None:
+        monkeypatch.delenv("MEMEX_COMPILE_CACHE", raising=False)
+    else:
+        monkeypatch.setenv("MEMEX_COMPILE_CACHE",
+                           str(tmp_path / value) if value == "cache" else value)
+    where = kernels.build_dir()
+    assert os.path.dirname(kernels.library_path()) == where
+    if value is None:
+        assert where == repo_dir
+    elif value == "cache":
+        assert where == str(tmp_path / "cache")
+    else:
+        assert os.path.isdir(where) and where != repo_dir
+        assert os.path.commonpath([where, tempfile.gettempdir()]) == tempfile.gettempdir()
+        assert kernels.build_dir() == where  # one directory for the process

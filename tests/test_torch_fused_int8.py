@@ -230,3 +230,82 @@ def test_cpu_tensors_never_count_as_int8_launches():
     ft.fused_score_topk_int8q(*args)
     ft.fused_score_topk_int8(*args)
     assert ft.LAUNCHES == before
+
+
+def _rerank_case(case):
+    """(float rows or None, codes, scales, queries, k, count, alive, rerank)
+    for one case of the int8q rerank; both packages get the same codes."""
+    rng = np.random.default_rng({"random": 21, "wide": 22, "alive-mask": 5,
+                                 "improves-on-coarse": 23}[case])
+    if case == "random":
+        _, codes, scales = _corpus(24)
+        alive = (rng.random(N) > 0.2).astype(np.float32)
+        return None, codes, scales, _unit(rng, 3), 10, N - 37, alive, 64
+    if case == "wide":  # rerank past the bank's 512 slots takes all 512
+        _, codes, scales = _corpus(25)
+        return None, codes, scales, _unit(rng, 40), KK, N, None, 600
+    db = _unit(rng, 2048, 128)
+    if case == "alive-mask":
+        # tests/test_worker_robustness.py:187: queries next to rows 0-3,
+        # which are tombstoned: they must not crowd the candidate bank.
+        q = db[:4] + 0.01 * rng.standard_normal((4, 128)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        alive = np.ones(2048, np.float32)
+        alive[:4] = 0.0
+        k = 8
+    else:  # tests/test_fused_kernel.py:131
+        q, alive, k = _unit(rng, 8, 128), None, 10
+    codes, scales = (np.array(a) for a in jax.jit(jft.quantize_rows_int8)(jnp.asarray(db)))
+    return db, codes, scales, q, k, 2048, alive, 64
+
+
+@pytest.mark.parametrize("case", ["random", "wide", "alive-mask", "improves-on-coarse"])
+def test_plain_int8q_rerank_matches_jax(case):
+    """fused_score_topk_int8q_rerank's plain version (K2's plain bank, then
+    the bf16-query rerank) against memex_tpu's in interpret mode: ids equal,
+    values within 1e-5 (bf16 x int8 products summed in float32 in other
+    orders, times the row scale). Plus each memex_tpu case's own check."""
+    db, codes, scales, q, k, count, alive, rerank = _rerank_case(case)
+    jv, ji = jft.fused_score_topk_int8q_rerank(
+        jnp.asarray(codes), jnp.asarray(scales), jnp.asarray(q), k, count=count,
+        alive=None if alive is None else jnp.asarray(alive), rerank=rerank, block_n=1024,
+        banks=4, interpret=True)
+    args = (torch.from_numpy(codes), torch.from_numpy(scales), torch.from_numpy(q), k)
+    kw = dict(count=count, alive=None if alive is None else torch.from_numpy(alive),
+              rerank=rerank)
+    tv, ti = ft.fused_score_topk_int8q_rerank(*args, **kw)
+    assert ti.dtype == torch.int32 and tv.shape == ti.shape == (q.shape[0], k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=1e-5)
+    rv, ri = ft.fused_score_topk_int8q_rerank_reference(*args, **kw)
+    assert torch.equal(rv, tv) and torch.equal(ri, ti)
+    ti, tv = ti.numpy(), tv.numpy()
+    assert (ti < count).all()
+    if alive is not None:
+        assert (tv > -1e29).all(), "tombstones crowded the bank: fewer than k live hits"
+        assert (alive[ti] > 0).all()
+    if case == "improves-on-coarse":
+        true = q @ db.T
+        oracle = np.argsort(-true, axis=1, kind="stable")[:, :10]
+        _, coarse = ft.fused_score_topk_int8q(*args, count=count, banks=4)
+
+        def recall(idx):
+            return np.mean([len(set(a) & set(b)) / 10 for a, b in zip(idx, oracle)])
+
+        assert recall(ti) >= recall(coarse.numpy())
+        # Reranked scores are bf16-query exact: close to the true cosine.
+        np.testing.assert_allclose(tv[:, 0], true.max(axis=1), atol=2e-2)
+
+
+def test_int8q_rerank_counts_under_k2():
+    """The rerank's coarse scan is K2: on CPU tensors its plain version,
+    which counts no launch; its signature keeps memex_tpu's defaults."""
+    import inspect
+
+    sig = inspect.signature(ft.fused_score_topk_int8q_rerank)
+    assert sig.parameters["rerank"].default == 64 and sig.parameters["banks"].default == 4
+    rng, codes, scales = _corpus(2, 2048)
+    before = dict(ft.LAUNCHES)
+    ft.fused_score_topk_int8q_rerank(torch.from_numpy(codes), torch.from_numpy(scales),
+                                     torch.from_numpy(_unit(rng, 2)), 4)
+    assert ft.LAUNCHES == before

@@ -1,6 +1,6 @@
-"""The CUDA kernels (memex_tpu_torch/csrc/fused_topk*.cu: K1-K4; ivf_*.cu:
-K5-K7) against their plain PyTorch versions on the card, and k-means'
-determinism there. Marked `gpu`: without a CUDA
+"""The CUDA kernels (memex_tpu_torch/csrc/fused_topk*.cu: K1-K4, K2 also
+under the int8q rerank; ivf_*.cu: K5-K7) against their plain PyTorch
+versions on the card, and k-means' determinism there. Marked `gpu`: without a CUDA
 card every test here skips. Run on a card with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -95,6 +95,24 @@ def test_int8q_kernel_is_bit_equal_to_plain(cuda, keep2, q_n):
     assert ft.LAUNCHES["fused_topk_int8q"] == before + 1
     pv, pi = ft.fused_score_topk_int8q_reference(codes, scales, q, 128, **kw)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert int(ki.max()) < N - 1234 and (alive[ki.long()] > 0).all()
+
+
+@pytest.mark.parametrize("q_n", [1, 32, 77])
+@pytest.mark.parametrize("rerank,banks", [(64, 4), (600, 4), (64, 8)])
+def test_int8q_rerank_launches_k2_once_and_equals_plain(cuda, rerank, banks, q_n):
+    """fused_score_topk_int8q_rerank: one K2 launch, then the rerank on the
+    same candidates as the plain version's (K2's bank is bit-equal to it),
+    so ids and values are equal; no dead row is a hit."""
+    gen, codes, scales, alive = _int8_corpus(cuda, seed=4)
+    q = _unit(gen, q_n, cuda)
+    kw = dict(count=N - 1234, alive=alive, rerank=rerank, banks=banks)
+    before = ft.LAUNCHES["fused_topk_int8q"]
+    kv, ki = ft.fused_score_topk_int8q_rerank(codes, scales, q, 10, **kw)
+    assert ft.LAUNCHES["fused_topk_int8q"] == before + 1
+    pv, pi = ft.fused_score_topk_int8q_rerank_reference(codes, scales, q, 10, **kw)
+    assert ft.LAUNCHES["fused_topk_int8q"] == before + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
     assert int(ki.max()) < N - 1234 and (alive[ki.long()] > 0).all()
 
 
