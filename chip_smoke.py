@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from the sources in this checkout and drives
 the ingest-and-search path of every flat tier, the IVF tier and the
 sharded tiers (on one controller and on two ranks of a process group), the
 local LLM, encoder fine-tuning and the encoder's bulk and data-parallel
-ingest, failing (non-zero exit, no result line)
+ingest, and the recall/QPS harness, failing (non-zero exit, no result line)
 on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
@@ -131,13 +131,29 @@ on any failed phase:
      bit-equal to the plain version's, the top-10 equal to the plain
      version's, no dead row among the hits, recall@10 at Q = 128 at or
      above K2's own top list, ms beside it.
+ 10. the recall/QPS harness (memex_tpu_torch/benchmarks/) through its entry
+     points at all-MiniLM-L12-v2 width: `run.main` on memex_tpu's
+     clustered corpus (1,048,576 x 384, 32 queries, k = 10) in the flat,
+     flat_bf16, flat_int8 and ivf_int8 tiers on the card (recall@10 >=
+     0.95 flat, >= 0.93 IVF; K1, K2 and K5, or K7, launched); the blocked
+     device oracle (`datasets._oracle_topk_device`, 262,144-row blocks)
+     against the numpy one on that corpus (recall >= 0.999, every mismatch
+     a float64 near-tie within 1e-5); run.main's hnsw tier at 16,384 rows
+     (a one-core build); hnsw_recall at memex_tpu's test configuration
+     (8,192 x 384 around 2,048 centres, 64 queries, seed 4242): the
+     native HNSW at the reference's M = 16, ef_construction = 200,
+     ef_search = 32, every device tier (float32, bfloat16, int8 with bf16
+     queries, int8q, int4, ivf_int8) at or above its recall, and a second
+     build_or_load a cache hit with the same ids; then `llm_bench.main` at
+     TinyLlama-1.1B geometry, printed beside phase 6's readings.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
 each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
 searches for K3 and K4, phase 5's sharded path for K1-K5, phase 7's
 server on the fine-tuned encoder for K1, phase 8's two ranks for K1-K5,
-and phase 9's searches for K1 and its int8q reranks for K2), errors (phase 5's and phase 8's shard banks included) and times at Q = 32: the kernel's, its
+phase 9's searches for K1 and its int8q reranks for K2, and phase
+10's harness searches for K1-K5), errors (phase 5's and phase 8's shard banks included) and times at Q = 32: the kernel's, its
 plain version's, its bound (the larger of the bytes it must move at 3.35
 TB/s and its operations at the card's peak for their type, live rows
 only) and one PyTorch call computing the same product on operands laid
@@ -1801,10 +1817,11 @@ def busy_share(label: str, name: str, dtype: str, cfg, params, prompt) -> None:
           f"{wall_ms * 1e3 / max(kernels, 1):.2f})", flush=True)
 
 
-def phase6_model(label: str, seed: int, name: str, cfg, dtypes, device) -> dict:
+def phase6_model(label: str, seed: int, name: str, cfg, dtypes, device) -> tuple[dict, dict]:
     """One configuration: (a) card vs CPU, (c) each serving dtype vs
     float32, then for each dtype (b) cached decode vs prefill and (d)-(e).
-    Returns {dtype: (params, prompt)} for the busy-share pass."""
+    Returns {dtype: (params, prompt)} for the busy-share pass and {dtype:
+    llm_times' readings}."""
     import dataclasses
 
     import torch
@@ -1857,6 +1874,7 @@ def phase6_model(label: str, seed: int, name: str, cfg, dtypes, device) -> dict:
         served[dtype] = (params, full)
     del params32, full32, params, full
     torch.cuda.empty_cache()
+    times = {}
     for dtype in dtypes:
         params, full = served[dtype]
         cos = decode_vs_prefill(cfg, params, prompt, full)
@@ -1864,11 +1882,11 @@ def phase6_model(label: str, seed: int, name: str, cfg, dtypes, device) -> dict:
               f"{LLM_CHECK_STEPS} cached decode steps vs one prefill of {LLM_P}: "
               f"min_cosine={cos:.5f} (bar {LLM_DECODE_COS})", flush=True)
         check(cos >= LLM_DECODE_COS, f"{name} {dtype}: cached decode cosine {cos:.5f}")
-        llm_times(label, name, dtype, cfg, params, prompt, seed)
+        times[dtype] = llm_times(label, name, dtype, cfg, params, prompt, seed)
         served[dtype] = (params, prompt)
         del params, full
         torch.cuda.empty_cache()
-    return served
+    return served, times
 
 
 def write_llama_checkpoint(model_dir: str, cfg, seed: int, device: str) -> None:
@@ -2005,18 +2023,19 @@ def phase6_http(label: str, seed: int, work: str, device: str = "cuda") -> None:
             proc.wait()
 
 
-def phase6(label: str, seed: int, work: str) -> None:
+def phase6(label: str, seed: int, work: str) -> dict:
     """The local LLM on the card: each configuration in process, then the
-    HTTP server with LOCAL_LLM_CONFIG."""
+    HTTP server with LOCAL_LLM_CONFIG. Returns TinyLlama-1.1B bf16's
+    llm_times readings (phase 10 prints llm_bench's beside them)."""
     import torch
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     print(f"[{label}] phase6 start allocated_gb={torch.cuda.memory_allocated() / 1e9:.3f}",
           flush=True)
-    models = []
+    models, times = [], {}
     for name, cfg, dtypes in llm_models():
-        served = phase6_model(label, seed, name, cfg, dtypes, dev)
+        served, times[name] = phase6_model(label, seed, name, cfg, dtypes, dev)
         models += [(name, dtype, cfg, *served[dtype]) for dtype in dtypes]
         del served
         torch.cuda.empty_cache()
@@ -2026,6 +2045,7 @@ def phase6(label: str, seed: int, work: str) -> None:
     del models, model
     torch.cuda.empty_cache()
     phase6_http(label, seed, work)
+    return times["TinyLlama-1.1B"]["bfloat16"]
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -2867,6 +2887,203 @@ def add_path(launches: dict, stats: dict, path: dict, errs: dict, what: str) -> 
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], errs[name])
 
 
+# -- phase 10 ------------------------------------------------------------------
+# The recall/QPS harness (memex_tpu_torch/benchmarks/) through its entry
+# points, at all-MiniLM-L12-v2 width: run.main on memex_tpu's clustered
+# corpus at 1M rows, the blocked device oracle, the native HNSW against the
+# device tiers, and llm_bench.main at TinyLlama-1.1B geometry.
+
+HARNESS_N = 1 << 20
+HARNESS_TIERS = ("flat", "flat_bf16", "flat_int8", "ivf_int8")
+HARNESS_BARS = {"flat": 0.95, "flat_bf16": 0.95, "flat_int8": 0.95, "ivf_int8": 0.93}
+ORACLE_BLOCK = 262144
+ORACLE_RECALL = 0.999
+ORACLE_TIE = 1e-5    # a mismatch's float64 score from the 10th best's
+HNSW_RUN_N = 16384
+HNSW_N, HNSW_CENTRES, HNSW_Q, HNSW_SEED = 8192, 2048, 64, 4242  # memex_tpu's test
+LLM_BENCH_GEOMETRY = "tinyllama-1.1b"
+
+
+def json_lines(fn, argv: list[str]) -> list[dict]:
+    """Run an entry point's main(argv), print its stdout and return the
+    JSON objects it printed, one a line; it must exit 0."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    check(rc == 0, f"main({' '.join(argv)}) exited {rc}")
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def harness_run(label: str, launches: dict, device: str) -> tuple:
+    """(a) run.main at 1M rows on the card. Returns the corpus and queries
+    it drew (the same bytes make_corpus gives for its arguments)."""
+    from memex_tpu_torch.benchmarks import datasets, run
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    drawn = {}
+
+    def keep_corpus(*a, **kw):
+        drawn["corpus"] = datasets.make_corpus(*a, **kw)
+        return drawn["corpus"]
+
+    run.make_corpus = keep_corpus
+    try:
+        ft.reset_launches()
+        rows = json_lines(run.main, ["--n", str(HARNESS_N), "--q", "32", "--k", "10",
+                                     "--tiers", ",".join(HARNESS_TIERS), "--device", device])
+        path = dict(ft.LAUNCHES)
+    finally:
+        run.make_corpus = datasets.make_corpus
+    check([r["tier"] for r in rows] == list(HARNESS_TIERS), f"run.main printed {rows}")
+    for r in rows:
+        check(r["recall_at_k"] >= HARNESS_BARS[r["tier"]],
+              f"run.main {r['tier']}: recall@10 {r['recall_at_k']} < {HARNESS_BARS[r['tier']]}")
+    ivf = "ivf_batch" if path["ivf_batch"] else "ivf_probe"
+    print(f"[{label}] phase10 run.main n={HARNESS_N} launches K1={path['fused_topk']} "
+          f"K2={path['fused_topk_int8q']} ivf_int8 on {ivf}={path[ivf]} (K5 ivf_batch="
+          f"{path['ivf_batch']}, K7 ivf_probe={path['ivf_probe']}); recall bars "
+          f"{HARNESS_BARS}", flush=True)
+    for name in ("fused_topk", "fused_topk_int8q", ivf):
+        check(path[name] > 0, f"run.main launched {name} 0 times")
+    for name, n in path.items():
+        launches[name] += n
+    corpus = drawn["corpus"]
+    return corpus, datasets.make_queries(corpus, 32)
+
+
+def harness_oracle(label: str, corpus, queries, device: str) -> None:
+    """(b) The blocked device oracle against the numpy one: recall, and
+    every mismatch a near-tie in float64."""
+    import numpy as np
+
+    from memex_tpu_torch.benchmarks import datasets
+
+    t0 = time.perf_counter()
+    got = datasets._oracle_topk_device(corpus, queries, 10, device, block=ORACLE_BLOCK)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = datasets.oracle_topk(corpus, queries, 10)
+    host_s = time.perf_counter() - t0
+    rec = float(np.mean([len(set(g) & set(r)) / 10 for g, r in zip(got.tolist(),
+                                                                      ref.tolist())]))
+    worst = 0.0
+    for qi, (g, r) in enumerate(zip(got.tolist(), ref.tolist())):
+        odd = sorted(set(g) ^ set(r))
+        if odd:
+            q64 = queries[qi].astype(np.float64)
+            kth = np.sort(corpus[r].astype(np.float64) @ q64)[0]
+            worst = max(worst, float(np.max(np.abs(corpus[odd].astype(np.float64) @ q64
+                                                   - kth))))
+    print(f"[{label}] phase10 _oracle_topk_device block={ORACLE_BLOCK} vs numpy oracle "
+          f"recall_at_10={rec:.4f} (bar {ORACLE_RECALL}) worst mismatch float64 gap "
+          f"{worst:.3e} (bar {ORACLE_TIE}) seconds={dev_s:.3f} (numpy {host_s:.3f})",
+          flush=True)
+    check(rec >= ORACLE_RECALL, f"device oracle recall@10 {rec:.4f} < {ORACLE_RECALL}")
+    check(worst <= ORACLE_TIE, f"device oracle mismatch {worst:.3e} is no near-tie")
+
+
+def harness_hnsw(label: str, launches: dict, device: str) -> None:
+    """(c) run.main's hnsw tier, then hnsw_recall at memex_tpu's test
+    configuration: every device tier at or above HNSW's recall, and a
+    second build_or_load a cache hit with the same ids."""
+    import numpy as np
+    import torch
+
+    from memex_tpu_torch.benchmarks import hnsw_recall as hr
+    from memex_tpu_torch.benchmarks import run
+    from memex_tpu_torch.index import FlatIndex, IVFIndex
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    (row,) = json_lines(run.main, ["--n", str(HNSW_RUN_N), "--q", "32", "--k", "10",
+                                   "--tiers", "hnsw", "--device", device])
+    print(f"[{label}] phase10 run.main hnsw n={HNSW_RUN_N} build_s={row['build_s']} "
+          f"(one core) recall_at_10={row['recall_at_k']}", flush=True)
+
+    dev = torch.device(device)
+    corpus = hr.make_corpus(HNSW_N, DIM, seed=HNSW_SEED, centers=HNSW_CENTRES)
+    queries = hr.make_queries(HNSW_Q, DIM, seed=HNSW_SEED, centers=HNSW_CENTRES)
+    exact = hr.exact_topk_host(corpus, queries, 10)
+    cache = tempfile.mkdtemp(prefix="memex_hnsw_")
+    try:
+        graph, build_s = hr.build_or_load(corpus, seed=HNSW_SEED, cache_dir=cache)
+        ids = graph.search(queries, 10, ef=hr.EF_SEARCH_REF)
+        hnsw_rec = hr.recall_against(exact, ids)
+        again, again_s = hr.build_or_load(corpus, seed=HNSW_SEED, cache_dir=cache)
+        same = bool(np.array_equal(again.search(queries, 10, ef=hr.EF_SEARCH_REF), ids))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    print(f"[{label}] phase10 hnsw_recall n={HNSW_N} M={hr.M_REF} efc={hr.EFC_REF} "
+          f"ef={hr.EF_SEARCH_REF} build_s={build_s:.3f} recall_at_10={hnsw_rec:.4f}; second "
+          f"build_or_load build_s={again_s} ids_equal={same}", flush=True)
+    check(again_s == 0.0 and same, "hnsw_recall: the cached graph was not a hit with the "
+          "same ids")
+    names = [f"r{i}" for i in range(HNSW_N)]
+
+    def recall(hits) -> float:
+        return float(np.mean([len({int(s[1:]) for s, _ in h} & set(e.tolist())) / 10
+                              for h, e in zip(hits, exact)]))
+
+    tiers = {"f32": ("fused_topk", dict(dtype="float32")),
+             "bf16": ("fused_topk", dict(dtype="bfloat16")),
+             "int8": ("fused_topk_int8", dict(dtype="int8", query_quantize=False)),
+             "int8q": ("fused_topk_int8q", dict(dtype="int8")),
+             "int4": ("fused_topk_int4q", dict(dtype="int4")),
+             "ivf_int8": (None, None)}
+    got = {}
+    for tier, (kernel, opts) in tiers.items():
+        if opts is not None:
+            index = FlatIndex(DIM, capacity=HNSW_N, device=dev, **opts)
+            index.add(corpus, names)
+        else:
+            index = IVFIndex(DIM, n_clusters=64, nprobe=8, dtype="int8", device=dev)
+            index.build(corpus, names)
+            index.calibrate_operating_point(target_recall=0.95)
+        ft.reset_launches()
+        got[tier] = recall(index.search(queries, 10))
+        path = dict(ft.LAUNCHES)
+        if kernel is None:
+            kernel = "ivf_batch" if path["ivf_batch"] else "ivf_probe"
+        check(path[kernel] > 0, f"hnsw_recall {tier}: the search launched {kernel} 0 times")
+        for name, n in path.items():
+            launches[name] += n
+        print(f"[{label}] phase10 hnsw_recall {tier} on the card {kernel}_launches="
+              f"{path[kernel]} recall_at_10={got[tier]:.4f} (HNSW {hnsw_rec:.4f})", flush=True)
+        del index
+    for tier, rec in got.items():
+        check(rec >= hnsw_rec, f"hnsw_recall {tier}: recall@10 {rec:.4f} < HNSW's "
+              f"{hnsw_rec:.4f}")
+
+
+def phase10(label: str, tiny_llama: dict, device: str = "cuda") -> dict:
+    """The harness's four readings, (a)-(d). Returns the launches of its
+    searches, by kernel."""
+    import torch
+
+    from memex_tpu_torch.benchmarks import llm_bench
+
+    launches = dict.fromkeys(REPLACES, 0)
+    corpus, queries = harness_run(label, launches, device)
+    harness_oracle(label, corpus, queries, device)
+    del corpus, queries
+    harness_hnsw(label, launches, device)
+    torch.cuda.empty_cache()
+    (row,) = json_lines(llm_bench.main, ["--geometry", LLM_BENCH_GEOMETRY, "--device", device])
+    print(f"[{label}] phase10 llm_bench {LLM_BENCH_GEOMETRY} bf16: prefill_ms={row['prefill_ms']} "
+          f"batch_tok_per_s={row['batch_tok_per_s']} stream_tok_per_s="
+          f"{row['stream_tok_per_s']} first_token_ms={row['first_token_ms']} compile_s="
+          f"{row['compile_s']}; phase 6 TinyLlama-1.1B bf16: prefill_ms="
+          f"{tiny_llama['prefill_ms']:.3f} batch_tok_per_s={tiny_llama['batch_tok_per_s']:.2f} "
+          f"stream_tok_per_s={tiny_llama['stream_tok_per_s']:.2f} first_token_ms="
+          f"{tiny_llama['first_token_ms']:.3f}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2931,7 +3148,7 @@ def main(argv: list[str] | None = None) -> int:
             phase_done(5)
             # Phase 6, the local LLM: no scan kernel runs there, and its 7B
             # models need the card's memory to themselves.
-            phase6(label, args.seed, work)
+            tiny_llama = phase6(label, args.seed, work)
             phase_done(6)
             # Phase 7, encoder fine-tuning; its server's searches run K1.
             ft = phase7(label, args.seed, work)
@@ -2948,6 +3165,11 @@ def main(argv: list[str] | None = None) -> int:
             for name, n in phase9(label, args.seed, work, flat_ms).items():
                 launches[name] += n
             phase_done(9)
+            # Phase 10, the recall/QPS harness through run.main, the device
+            # oracle, hnsw_recall and llm_bench.main: its searches run K1-K5.
+            for name, n in phase10(label, tiny_llama).items():
+                launches[name] += n
+            phase_done(10)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"[{label}] smoke seconds={time.perf_counter() - t_all:.1f}", flush=True)

@@ -24,24 +24,11 @@ from .log import get_logger, init_logging
 logger = get_logger("memex_tpu_torch.main")
 
 
-def _device(args: argparse.Namespace):
-    """The command's torch device, or None (logged) when it asks for CUDA
-    and there is none."""
-    import torch
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        logger.error("--device %s requested but CUDA is not available "
-                     "(use --device cpu to run %s on the CPU)", args.device, args.command)
-        return None
-    return device
-
-
 def cmd_serve(args: argparse.Namespace) -> int:
     from .parallel.distributed import init_multihost
-    from .runtime import TorchRuntime
+    from .runtime import TorchRuntime, require_device
 
-    device = _device(args)
+    device = require_device(args.device, args.command)
     if device is None:
         return 2
     # Multi-host bring-up before the runtime (memex_tpu's order): the
@@ -123,9 +110,9 @@ def cmd_load(args: argparse.Namespace) -> int:
     import glob
 
     from .db import queue
-    from .runtime import TorchRuntime
+    from .runtime import TorchRuntime, require_device
 
-    device = _device(args)
+    device = require_device(args.device, args.command)
     if device is None:
         return 2
     rt = TorchRuntime(Settings.from_env(), device=device)
@@ -202,10 +189,10 @@ def cmd_train(args: argparse.Namespace) -> int:
     metrics as one JSON line."""
     import json
 
-    from .runtime import TorchRuntime
+    from .runtime import TorchRuntime, require_device
     from .train import TrainConfig, train_encoder
 
-    device = _device(args)
+    device = require_device(args.device, args.command)
     if device is None:
         return 2
     rt = TorchRuntime(Settings.from_env(), device=device)

@@ -21,6 +21,18 @@ from .store.registry import _REGISTRY, get_vector_storage
 logger = get_logger(__name__)
 
 
+def require_device(name: str, command: str) -> torch.device | None:
+    """`name` as a torch device, or None (logged) when it names CUDA and
+    there is no card: a command run without `--device cpu` never moves to
+    the CPU on its own."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        logger.error("--device %s requested but CUDA is not available "
+                     "(use --device cpu to run %s on the CPU)", name, command)
+        return None
+    return device
+
+
 class TorchRuntime:
     def __init__(self, settings: Settings | None = None, *,
                  device: torch.device | str = "cuda"):
