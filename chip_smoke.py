@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from the sources in this checkout and drives
 the ingest-and-search path of every flat tier, the IVF tier and the
 sharded tiers (on one controller and on two ranks of a process group), the
 local LLM, encoder fine-tuning and the encoder's bulk and data-parallel
-ingest, and the recall/QPS harness, failing (non-zero exit, no result line)
-on any failed phase:
+ingest, the recall/QPS harness and the benchmark entry point, failing
+(non-zero exit, no result line) on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
   1. each scan kernel against its plain PyTorch version at the flat
@@ -146,19 +146,31 @@ on any failed phase:
      queries, int8q, int4, ivf_int8) at or above its recall, and a second
      build_or_load a cache hit with the same ids; then `llm_bench.main` at
      TinyLlama-1.1B geometry, printed beside phase 6's readings.
+ 11. the benchmark entry point (memex_tpu_torch/bench.py, memex_tpu's
+     bench.py on the card) through `bench.main(["--device", "cuda"])`
+     with MEMEX_BENCH_10M_BLOCKS=1 (scale_10M at 1,048,576 rows) and
+     llm_decode skipped (phases 6 and 10 drive llm_bench): its last line
+     parses, no stage errs and none is skipped for the budget, every
+     kernels tier holds its recall bar (0.95; 0.99 the refine tiers),
+     scale_10M's IVF int8 and int4 0.93 and refine 0.95 against its
+     true-float32 oracle, whose regenerated block 0 must equal its first
+     draw bit for bit, the sharded IVF 0.93 and its refine variant 0.95;
+     its compact line and each stage's seconds are printed, and its
+     K1-K6 launches join the kernels line.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
 each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
 searches for K3 and K4, phase 5's sharded path for K1-K5, phase 7's
 server on the fine-tuned encoder for K1, phase 8's two ranks for K1-K5,
-phase 9's searches for K1 and its int8q reranks for K2, and phase
-10's harness searches for K1-K5), errors (phase 5's and phase 8's shard banks included) and times at Q = 32: the kernel's, its
-plain version's, its bound (the larger of the bytes it must move at 3.35
-TB/s and its operations at the card's peak for their type, live rows
-only) and one PyTorch call computing the same product on operands laid
-out beforehand (library_ms: torch.matmul, or torch._int_mm for int8
-queries; the port never calls it).
+phase 9's searches for K1 and its int8q reranks for K2, phase 10's
+harness searches for K1-K5, and phase 11's bench stages for K1-K6),
+errors (phase 5's and phase 8's shard banks included) and times at Q =
+32: the kernel's, its plain version's, its bound (the larger of the bytes
+it must move at 3.35 TB/s and its operations at the card's peak for their
+type, live rows only) and one PyTorch call computing the same product on
+operands laid out beforehand (library_ms: torch.matmul, or torch._int_mm
+for int8 queries; the port never calls it).
 """
 
 from __future__ import annotations
@@ -3084,6 +3096,110 @@ def phase10(label: str, tiny_llama: dict, device: str = "cuda") -> dict:
     return launches
 
 
+# -- phase 11 ------------------------------------------------------------------
+# The benchmark entry point (memex_tpu_torch/bench.py) through its main():
+# every stage, scale_10M at 1M rows, llm_decode skipped (phases 6 and 10
+# drive llm_bench), under a budget that covers every other stage.
+
+BENCH_ENV = {"MEMEX_BENCH_10M_BLOCKS": "1", "MEMEX_BENCH_SKIP_LLM_DECODE": "1",
+             "MEMEX_BENCH_BUDGET_S": "3000"}
+BENCH_STAGES = ("scale_10M", "sharded_ivf_1M", "recall_vs_hnsw", "serve_1M",
+                "bulk_load_1M_s")  # and e2e, whose keys merge into `e2e` itself
+BENCH_E2E_KEYS = ("ingest_docs_per_s", "query_p50_ms", "query_p99_ms",
+                  "query_concurrent_qps", "query_store_rows")
+# PERF.md section 2's bars: flat tiers 0.95 and their refine tiers 0.99;
+# IVF int8 and int4 0.93, int8+refine 0.95 (the 10M configuration's
+# routing, here on 1M rows, and the sharded IVF).
+BENCH_FLAT_BAR, BENCH_FLAT_REFINE_BAR = 0.95, 0.99
+BENCH_IVF_BAR, BENCH_IVF_REFINE_BAR = 0.93, 0.95
+
+
+def bench_stage_seconds(docs: list[dict]) -> dict:
+    """Seconds of each stage, from the elapsed_s of the documents main()
+    printed after each one (a stage's key, or its _error, appears in `e2e`
+    with the emit that follows it; e2e's own keys merge into `e2e`)."""
+    seen, prev, out = set(), 0.0, {}
+    for doc in docs:
+        keys = set(doc.get("e2e", {})) - seen
+        if keys:
+            if not seen:
+                out["kernels"] = prev
+            stage = "e2e" if keys & set(BENCH_E2E_KEYS) else sorted(keys)[0].removesuffix(
+                "_error")
+            out[stage] = round(doc.get("elapsed_s", 0) - prev, 1)
+            seen |= keys
+        prev = doc.get("elapsed_s", prev)
+    return out
+
+
+def phase11(label: str, work: str, device: str = "cuda") -> dict:
+    """bench.main on the card. Returns the launches of its run, by kernel."""
+    import contextlib
+    import io
+
+    from memex_tpu_torch import bench
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    env = {**BENCH_ENV, "MEMEX_BENCH_DOC_PATH": os.path.join(work, "BENCH_FULL.json")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = io.StringIO()
+    try:
+        ft.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--device", device])
+        launches = dict(ft.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(rc == 0, f"bench.main exited {rc}")
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    compact, full = lines[-1], lines[-2]
+    print(f"[{label}] phase11 bench compact line: {json.dumps(compact)}", flush=True)
+    print(f"[{label}] phase11 bench stage seconds: {bench_stage_seconds(lines[0::2])}",
+          flush=True)
+    check(compact["errors"] == 0, f"bench stages failed: {compact.get('error_stages')}")
+    check(full["skipped_stages"] == [{"stage": "llm_decode", "why": "env"}],
+          f"bench skipped {full['skipped_stages']}")
+    e2e = full["e2e"]
+    for stage in BENCH_STAGES:
+        check(stage in e2e, f"bench recorded no {stage}")
+    for key in BENCH_E2E_KEYS:
+        check(key in e2e, f"bench's e2e stage recorded no {key}")
+    for name, row in full["tiers"].items():
+        bar = BENCH_FLAT_REFINE_BAR if "refine" in name else BENCH_FLAT_BAR
+        print(f"[{label}] phase11 kernels {name} Q={row['q']} qps={row['qps']} "
+              f"recall_at_10={row['recall']} (bar {bar}) hbm_gbps={row.get('hbm_gbps')} "
+              f"pct_peak_hbm={row.get('pct_peak_hbm')} bound={row.get('bound')}", flush=True)
+        check(row["recall"] >= bar, f"bench kernels {name}: recall@10 {row['recall']} < {bar}")
+    s10 = e2e["scale_10M"]
+    check(s10.get("corpus_regen_bit_equal") is True,
+          "scale_10M: a regenerated block differed from its first draw")
+    for key, bar in (("ivf_recall_at_10_vs_exact_f32", BENCH_IVF_BAR),
+                     ("ivf_int4_recall_at_10_vs_exact_f32", BENCH_IVF_BAR),
+                     ("ivf_refine_recall_at_10_vs_exact_f32", BENCH_IVF_REFINE_BAR)):
+        check(s10[key] >= bar, f"scale_10M {key} {s10[key]} < {bar}")
+    sh = e2e["sharded_ivf_1M"]
+    check(sh["recall_at_10_vs_int8_exact"] >= BENCH_IVF_BAR,
+          f"sharded_ivf_1M recall@10 {sh['recall_at_10_vs_int8_exact']} < {BENCH_IVF_BAR}")
+    ref = sh["refine"]["refine"]["recall_at_10_vs_exact_f32"]
+    check(ref >= BENCH_IVF_REFINE_BAR, f"sharded_ivf_1M refine recall@10 {ref} < "
+          f"{BENCH_IVF_REFINE_BAR}")
+    print(f"[{label}] phase11 scale_10M n={s10['n']} ivf recall_at_10 int8 "
+          f"{s10['ivf_recall_at_10_vs_exact_f32']} int4 "
+          f"{s10['ivf_int4_recall_at_10_vs_exact_f32']} refine "
+          f"{s10['ivf_refine_recall_at_10_vs_exact_f32']}; sharded_ivf_1M "
+          f"{sh['recall_at_10_vs_int8_exact']} refine {ref}; recall_vs_hnsw "
+          f"{e2e['recall_vs_hnsw']}; launches {launches}", flush=True)
+    for name in ("fused_topk", "fused_topk_int8q", "fused_topk_int8", "fused_topk_int4q",
+                 "ivf_batch", "ivf_batch4"):
+        check(launches[name] > 0, f"bench.main launched {name} 0 times")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3170,6 +3286,11 @@ def main(argv: list[str] | None = None) -> int:
             for name, n in phase10(label, tiny_llama).items():
                 launches[name] += n
             phase_done(10)
+            # Phase 11, the benchmark entry point through bench.main: its
+            # stages run K1-K6.
+            for name, n in phase11(label, work).items():
+                launches[name] += n
+            phase_done(11)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"[{label}] smoke seconds={time.perf_counter() - t_all:.1f}", flush=True)

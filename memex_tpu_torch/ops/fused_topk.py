@@ -262,6 +262,28 @@ def quantize_rows_int8_refine(x: torch.Tensor):
     return codes, scales, rcodes, rscales
 
 
+# `absmax / 7.0` as memex_tpu's jitted int4 quantizer computes it (see _INV127).
+_INV7 = float(np.float32(1.0 / 7.0))
+
+
+def quantize_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device int4 pack: [N, D] float -> ([N, D/2] int8 packed rows, [N]
+    float32 scales), on x's device. Symmetric per row: scale = max(|row|,
+    1e-12) / 7, code = round-half-even(x / scale) clipped to [-7, 7], and
+    byte j holds the signed value code[j] + 16 * code[j + D/2], in the
+    float32 arithmetic of memex_tpu's jitted `quantize_rows_int4`. memex_tpu
+    returns the packed array transposed ([D/2, N], its TPU layout); the
+    port keeps rows contiguous, as `np_quantize_rows_int4` does."""
+    x = x.float()
+    d = x.shape[1]
+    if d % 2:
+        raise ValueError(f"int4 packing needs an even dim, got {d}")
+    scales = torch.clamp(x.abs().amax(dim=1), min=1e-12) * _INV7
+    codes = torch.clamp(torch.round(x / scales[:, None]), -7, 7).to(torch.int32)
+    packed = codes[:, : d // 2] + 16 * codes[:, d // 2 :]  # |b| <= 119
+    return packed.to(torch.int8).contiguous(), scales
+
+
 def np_quantize_rows_int4(vectors) -> tuple[np.ndarray, np.ndarray]:
     """Host-side int4 pack (ingest path): [M, D] f32 -> ([M, D/2] int8
     packed rows, [M] f32 scales). Symmetric per row to [-7, 7]; byte j
