@@ -198,6 +198,7 @@ TIMED_Q = (1, 32, 128)
 # K2, K3, K4 and K6 are also checked around their tile widths: 16 queries a
 # pair of n-tiles, 32 a fold pass, more on further warps.
 TILE_Q = (1, 2, 31, 32, 33, 64, 128)
+BENCH_BIG_Q = (256, 512)  # K2's batches in bench's int8q_q256 / _q512 tiers
 N_ROWS = 1 << 20
 DIM = 384
 # Float kernels (K1, K3, K4's rerank) vs plain version: both sum 384
@@ -409,6 +410,23 @@ def phase1(label: str, seed: int) -> dict:
                                       int_mm_ms(q8, codes.t(), "K2"))
     out["fused_topk_int8q"] = {"max_abs_err": 0.0, "ms": res[(False, MAIN_Q)][0],
                                "plain_ms": res[(False, MAIN_Q)][1], **k2_cols}
+    # ... and at the batches of bench's int8q_q256 / _q512 tiers (phase 11),
+    # two and four 128-query tiles, with their arguments: every row, no
+    # mask, S = 512, the top 10.
+    for Q in BENCH_BIG_Q:
+        q = unit_rows(Q, DIM, gen, dev)
+        q8, _ = ft.quantize_rows_int8(q)
+        kw = dict(count=N_ROWS, banks=4)
+        bank = ft.fused_score_bank_int8q_cuda(codes, scales, q8, **kw)
+        plain = ft.int8q_bank_reference(codes, scales, q8, **kw)
+        bit_equal(bank[0] + bank[1], plain[0] + plain[1], f"K2 bank S=512 Q={Q}")
+        top = ft.fused_score_topk_int8q(codes, scales, q, 10, **kw)
+        bit_equal(list(top), list(ft.fused_score_topk_int8q_reference(codes, scales, q, 10,
+                                                                      **kw)),
+                  f"K2 top list S=512 Q={Q}")
+        print(f"[{label}] phase1 K2 int8q S=512 Q={Q} count={N_ROWS} k=10 bit_equal=True",
+              flush=True)
+        del bank, plain, top
 
     # K3: K1's tolerance (the tensor cores sum the 384 products in another
     # order than the plain version's matmul), bank and top list, at the
@@ -3099,7 +3117,12 @@ def phase10(label: str, tiny_llama: dict, device: str = "cuda") -> dict:
 # -- phase 11 ------------------------------------------------------------------
 # The benchmark entry point (memex_tpu_torch/bench.py) through its main():
 # every stage, scale_10M at 1M rows, llm_decode skipped (phases 6 and 10
-# drive llm_bench), under a budget that covers every other stage.
+# drive llm_bench), under a budget that covers every other stage. main's
+# recall_vs_hnsw returns `skipped`: no 1M graph is cached between runs and
+# building one takes ~22 minutes on one core. So the stage runs once more
+# on its own at 8,192 rows, where the graph builds in ~4 s, and its
+# card part (K2 on host-quantized rows, IVFIndex.build_device, the
+# recall-target margin calibration, K5) runs in every smoke.
 
 BENCH_ENV = {"MEMEX_BENCH_10M_BLOCKS": "1", "MEMEX_BENCH_SKIP_LLM_DECODE": "1",
              "MEMEX_BENCH_BUDGET_S": "3000"}
@@ -3112,6 +3135,12 @@ BENCH_E2E_KEYS = ("ingest_docs_per_s", "query_p50_ms", "query_p99_ms",
 # routing, here on 1M rows, and the sharded IVF).
 BENCH_FLAT_BAR, BENCH_FLAT_REFINE_BAR = 0.95, 0.99
 BENCH_IVF_BAR, BENCH_IVF_REFINE_BAR = 0.93, 0.95
+# recall_vs_hnsw at 1/128 of its 1M rows with the 1M stage's geometry: 128
+# rows a centre (64 centres, not 8,192), 8 centres an IVF cluster (8
+# clusters, not 1,024), nprobe 16 / 128 -> 1. Held to section 2's bars for
+# its card tiers (int8q flat 0.95, IVF int8 0.93); HNSW's own recall here
+# is near 1, so "at or above HNSW" is not asked of them at this size.
+BENCH_HNSW_KW = dict(n1=8192, centers=64, n_clusters=8, nprobe=1)
 
 
 def bench_stage_seconds(docs: list[dict]) -> dict:
@@ -3133,7 +3162,8 @@ def bench_stage_seconds(docs: list[dict]) -> dict:
 
 
 def phase11(label: str, work: str, device: str = "cuda") -> dict:
-    """bench.main on the card. Returns the launches of its run, by kernel."""
+    """bench.main on the card (its recall_vs_hnsw `skipped`), then that
+    stage alone at 8,192 rows. Returns the launches of both, by kernel."""
     import contextlib
     import io
 
@@ -3141,15 +3171,22 @@ def phase11(label: str, work: str, device: str = "cuda") -> dict:
     from memex_tpu_torch.ops import fused_topk as ft
 
     env = {**BENCH_ENV, "MEMEX_BENCH_DOC_PATH": os.path.join(work, "BENCH_FULL.json")}
-    saved = {k: os.environ.get(k) for k in env}
+    saved = {k: os.environ.get(k) for k in (*env, "MEMEX_BENCH_BUILD_HNSW")}
     os.environ.update(env)
+    os.environ.pop("MEMEX_BENCH_BUILD_HNSW", None)
     out = io.StringIO()
+    cache = tempfile.mkdtemp(prefix="memex_bench_hnsw_", dir=work)
     try:
         ft.reset_launches()
         with contextlib.redirect_stdout(out):
             rc = bench.main(["--device", device])
         launches = dict(ft.LAUNCHES)
+        os.environ["MEMEX_BENCH_BUILD_HNSW"] = "1"
+        ft.reset_launches()
+        hnsw = bench.bench_recall_vs_hnsw(device, cache_dir=cache, **BENCH_HNSW_KW)
+        hnsw_launches = dict(ft.LAUNCHES)
     finally:
+        shutil.rmtree(cache, ignore_errors=True)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -3175,9 +3212,9 @@ def phase11(label: str, work: str, device: str = "cuda") -> dict:
               f"recall_at_10={row['recall']} (bar {bar}) hbm_gbps={row.get('hbm_gbps')} "
               f"pct_peak_hbm={row.get('pct_peak_hbm')} bound={row.get('bound')}", flush=True)
         check(row["recall"] >= bar, f"bench kernels {name}: recall@10 {row['recall']} < {bar}")
+    # scale_10M raises (and main records scale_10M_error) if block 0 drawn
+    # again from its seed differs: errors == 0 above says the check held.
     s10 = e2e["scale_10M"]
-    check(s10.get("corpus_regen_bit_equal") is True,
-          "scale_10M: a regenerated block differed from its first draw")
     for key, bar in (("ivf_recall_at_10_vs_exact_f32", BENCH_IVF_BAR),
                      ("ivf_int4_recall_at_10_vs_exact_f32", BENCH_IVF_BAR),
                      ("ivf_refine_recall_at_10_vs_exact_f32", BENCH_IVF_REFINE_BAR)):
@@ -3188,15 +3225,32 @@ def phase11(label: str, work: str, device: str = "cuda") -> dict:
     ref = sh["refine"]["refine"]["recall_at_10_vs_exact_f32"]
     check(ref >= BENCH_IVF_REFINE_BAR, f"sharded_ivf_1M refine recall@10 {ref} < "
           f"{BENCH_IVF_REFINE_BAR}")
+    check(set(e2e["recall_vs_hnsw"]) == {"skipped"},
+          f"bench.main's recall_vs_hnsw found a 1M graph: {e2e['recall_vs_hnsw']}")
     print(f"[{label}] phase11 scale_10M n={s10['n']} ivf recall_at_10 int8 "
           f"{s10['ivf_recall_at_10_vs_exact_f32']} int4 "
           f"{s10['ivf_int4_recall_at_10_vs_exact_f32']} refine "
           f"{s10['ivf_refine_recall_at_10_vs_exact_f32']}; sharded_ivf_1M "
-          f"{sh['recall_at_10_vs_int8_exact']} refine {ref}; recall_vs_hnsw "
+          f"{sh['recall_at_10_vs_int8_exact']} refine {ref}; recall_vs_hnsw at 1M "
           f"{e2e['recall_vs_hnsw']}; launches {launches}", flush=True)
     for name in ("fused_topk", "fused_topk_int8q", "fused_topk_int8", "fused_topk_int4q",
                  "ivf_batch", "ivf_batch4"):
         check(launches[name] > 0, f"bench.main launched {name} 0 times")
+
+    # The recall_vs_hnsw stage at 8,192 rows: HNSW built, its card tiers at
+    # their bars.
+    tiers = hnsw["tiers"]
+    print(f"[{label}] phase11 recall_vs_hnsw {BENCH_HNSW_KW} hnsw {hnsw['hnsw']} int8q_flat "
+          f"{tiers['int8q_flat']} ivf_int8_pruned {tiers['ivf_int8_pruned']}; launches "
+          f"{hnsw_launches}", flush=True)
+    check(isinstance(hnsw["hnsw"]["build_s"], float), "recall_vs_hnsw built no graph")
+    for tier, bar in (("int8q_flat", BENCH_FLAT_BAR), ("ivf_int8_pruned", BENCH_IVF_BAR)):
+        rec = tiers[tier]["recall_at_10_vs_exact"]
+        check(rec >= bar, f"recall_vs_hnsw {tier}: recall@10 {rec} < {bar}")
+    for name in ("fused_topk_int8q", "ivf_batch"):
+        check(hnsw_launches[name] > 0, f"recall_vs_hnsw launched {name} 0 times")
+    for name, n in hnsw_launches.items():
+        launches[name] += n
     return launches
 
 

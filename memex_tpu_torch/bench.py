@@ -770,7 +770,6 @@ def bench_scale_10m(device, *, n10: int | None = None, blk: int = 1 << 18,
     return {
         "n": N10,
         "corpus_gen_s": round(gen_s, 2),
-        "corpus_regen_bit_equal": True,
         "flat_int8q_q128_qps": round(flat_qps, 1),
         "flat_roofline": flat_roof,
         "ivf_build_device_s": round(build_s, 2),
@@ -922,11 +921,11 @@ def _sharded_refine_hw(device, *, n: int = 1 << 18, n_clusters: int = 256,
 
 
 def bench_recall_vs_hnsw(device, *, n1: int = 1 << 20, qn: int = 128, seed: int = 1234,
-                         n_clusters: int = 1024, nprobe: int = 16,
+                         centers: int = 8192, n_clusters: int = 1024, nprobe: int = 16,
                          cache_dir: str | None = None) -> dict:
     """BASELINE.json's north star as written: recall@10 against the
     reference's HNSW (M = 16, ef_construction 200, ef_search 32) on n1 x
-    384 rows. The graph is built once (one core, ~40 minutes at 1M, only
+    384 rows drawn around `centers` centres. The graph is built once (one core, ~40 minutes at 1M, only
     with MEMEX_BENCH_BUILD_HNSW=1) and cached (hnsw_recall.build_or_load);
     without it the stage returns `skipped`. The int8q flat tier (K2) and
     the pruned IVF tier (K5) are scored against the same float32 host
@@ -938,7 +937,7 @@ def bench_recall_vs_hnsw(device, *, n1: int = 1 << 20, qn: int = 128, seed: int 
 
     device = torch.device(device)
     t0 = time.perf_counter()
-    corpus = hr.make_corpus(n1, D, seed=seed)
+    corpus = hr.make_corpus(n1, D, seed=seed, centers=centers)
     gen_s = time.perf_counter() - t0
     build_env = os.environ.get("MEMEX_BENCH_BUILD_HNSW") == "1"
     graph, build_s = hr.build_or_load(corpus, seed=seed, cache_dir=cache_dir or hr.DEFAULT_CACHE,
@@ -946,7 +945,7 @@ def bench_recall_vs_hnsw(device, *, n1: int = 1 << 20, qn: int = 128, seed: int 
     if graph is None:
         return {"skipped": "no cached HNSW baseline graph "
                            "(run with MEMEX_BENCH_BUILD_HNSW=1 once)"}
-    queries = hr.make_queries(qn, D, seed=seed)
+    queries = hr.make_queries(qn, D, seed=seed, centers=centers)
     exact = hr.exact_topk_host(corpus, queries, K)
 
     t0 = time.perf_counter()

@@ -222,15 +222,18 @@ def int_mm_ms(a, b_t, what: str) -> float | None:
 
 
 def pack_int4(rows):
-    """(packed [N, D/2] int8 rows as the flat index stores them, byte j =
-    16 * code[j + D/2] + code[j]; the int4 codes [N, D] as int8)."""
+    """(packed [N, D/2] int8 rows as the flat index stores them, from
+    `quantize_rows_int4`: byte j = 16 * code[j + D/2] + code[j]; the int4
+    codes [N, D] as int8, unpacked from those bytes, for the library's
+    int8 product)."""
     import torch
 
-    d = rows.shape[1]
-    s4 = torch.clamp(rows.abs().amax(dim=1), min=1e-12) / 7.0
-    c4 = torch.clamp(torch.round(rows / s4[:, None]), -7, 7).to(torch.int32)
-    packed = (c4[:, : d // 2] + 16 * c4[:, d // 2 :]).to(torch.int8).contiguous()
-    return packed, c4.to(torch.int8)
+    from memex_tpu_torch.ops.fused_topk import quantize_rows_int4
+
+    packed, _ = quantize_rows_int4(rows)
+    b = packed.to(torch.int32)
+    lo = torch.remainder(b + 8, 16) - 8  # code[j] in [-7, 7]
+    return packed, torch.cat([lo, (b - lo) // 16], dim=1).to(torch.int8)
 
 
 def main(argv: list[str] | None = None) -> int:

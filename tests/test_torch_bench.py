@@ -321,7 +321,7 @@ def test_bench_kernels_runs_every_tier_with_bench_py_keys():
 
 # -- the other stages, small -----------------------------------------------------------
 
-# bench.py:963-990 (the port adds corpus_regen_bit_equal).
+# bench.py:963-990.
 SCALE_10M_KEYS = {
     "n", "corpus_gen_s", "flat_int8q_q128_qps", "flat_roofline", "ivf_build_device_s",
     "ivf_spill_rows", "ivf_nprobe64_qps_q32", "ivf_nprobe64_qps_q128", "ivf_p50_batch_ms",
@@ -335,8 +335,7 @@ SCALE_10M_KEYS = {
     "ivf_int4_pack_s", "ivf_int4_qps_q32", "ivf_int4_qps_q128",
     "ivf_int4_recall_at_10_vs_exact_f32", "ivf_int4_pruned_qps_q32",
     "ivf_int4_pruned_margin", "ivf_int4_pruned_recall_at_10_vs_exact_f32",
-    "ckpt_incremental_s", "rebuild_device_s", "spill_after_rebuild",
-    "corpus_regen_bit_equal"}
+    "ckpt_incremental_s", "rebuild_device_s", "spill_after_rebuild"}
 PRUNED_KEYS = {"union_clusters_full", "sweep", "selection_floor", "floor_met", "best_at_95",
                "qps_q128_at_best95"}  # bench.py:748-769
 SWEEP_KEYS = {"margin", "qps_q32", "recall_at_10", "tie_recall_at_10", "union_clusters"}
@@ -362,7 +361,7 @@ def test_scale_10m_small_returns_bench_py_keys():
     assert set(out) == SCALE_10M_KEYS, set(out) ^ SCALE_10M_KEYS
     assert set(out["ivf_pruned"]) == PRUNED_KEYS
     assert all(set(p) == SWEEP_KEYS for p in out["ivf_pruned"]["sweep"])
-    assert out["n"] == 16384 and out["corpus_regen_bit_equal"] is True
+    assert out["n"] == 16384
     assert out["flat_roofline"] == {} and out["ivf_roofline_q32"] == {}
     # A returned oracle row scores its oracle value exactly: tie-aware
     # recall is never below id recall against the float32 oracle.
@@ -378,6 +377,16 @@ def test_scale_10m_reads_its_rows_from_the_env(monkeypatch):
     monkeypatch.setenv("MEMEX_BENCH_10M_BLOCKS", "0")
     with pytest.raises(ValueError, match="too small"):
         bench.bench_scale_10m("cpu", blk=4096, centers=8, n_clusters=16, batches=1, reps=1)
+
+
+def test_scale_10m_raises_when_block_0_regenerates_other_bits(monkeypatch):
+    """The float32 oracle re-draws each block from its seed: a stage whose
+    re-draw of block 0 differs raises (main records it as scale_10M_error)
+    before it indexes anything."""
+    monkeypatch.setattr(torch, "equal", lambda a, b: False)
+    with pytest.raises(RuntimeError, match="regenerated"):
+        bench.bench_scale_10m("cpu", n10=16384, blk=4096, centers=64, n_clusters=16,
+                              nprobe=4, batches=1, reps=1, n_extra=64)
 
 
 def test_sharded_ivf_small_returns_bench_py_keys():

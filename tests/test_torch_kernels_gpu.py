@@ -297,14 +297,6 @@ def test_k2_tensor_core_body_is_bit_equal_to_plain(cuda, corpus, d, keep2, q_n):
         assert torch.equal(a, b)
 
 
-def _pack_int4(rows):
-    """Packed int4 rows [N, d/2] (byte j = 16 * code[j + d/2] + code[j])."""
-    d = rows.shape[1]
-    s4 = torch.clamp(rows.abs().amax(dim=1), min=1e-12) / 7.0
-    c4 = torch.clamp(torch.round(rows / s4[:, None]), -7, 7).to(torch.int32)
-    return (c4[:, : d // 2] + 16 * c4[:, d // 2 :]).to(torch.int8).contiguous()
-
-
 @pytest.mark.parametrize("q_n", TC_Q)
 @pytest.mark.parametrize("keep2,banks", [(False, 8), (True, 16)])
 @pytest.mark.parametrize("deferred", [False, True])
@@ -316,7 +308,7 @@ def test_k4_tensor_core_body_is_bit_equal_to_plain(cuda, corpus, d, deferred, ke
     multiple of 16 but not of the s8 product's k = 32."""
     gen = torch.Generator(device=cuda).manual_seed(100 + q_n)
     rows = _rows_of(gen, corpus, N, d, cuda)
-    packed = _pack_int4(rows)
+    packed, _ = ft.quantize_rows_int4(rows)
     _, scales = ft.quantize_rows_int8(rows)
     q = _tied_queries(gen, corpus, rows, q_n)
     alive = (torch.rand(N, generator=gen, device=cuda) > 0.05).float()
