@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from the sources in this checkout and drives
 the ingest-and-search path of every flat tier, the IVF tier and the
 sharded tiers (on one controller and on two ranks of a process group), the
 local LLM, encoder fine-tuning and the encoder's bulk and data-parallel
-ingest, the recall/QPS harness and the benchmark entry point, failing
+ingest, the recall/QPS harness, the benchmark entry point with its
+real-text stages, the flat-tier sweeps and the clippy client, failing
 (non-zero exit, no result line) on any failed phase:
 
   0. a CUDA card is present; its name and power limit are printed;
@@ -23,7 +24,7 @@ ingest, the recall/QPS harness and the benchmark entry point, failing
      and top list, at the same batch sizes;
   2. the HTTP server (`python -m memex_tpu_torch serve`) at full
      all-MiniLM-L12-v2 width with seeded random weights, on a float32
-     store and on an int8+refine store (~200 documents each), then on a
+     store and on an int8+refine store (100 documents each), then on a
      `tpu+ivf://` store (~1,200 documents, enough for the store's spill
      rule to enqueue a worker Maintain task, which trains the index):
      searches from 32 concurrent clients, proof through the server's
@@ -64,7 +65,7 @@ ingest, the recall/QPS harness and the benchmark entry point, failing
   6. the local LLM (memex_tpu_torch/llm/local/) at full width with seeded
      random weights drawn on the card: TinyLlama-1.1B geometry in bf16,
      Llama-2-7B in bf16 and int8, GPT-J-6B in bf16, the two 7B-class
-     models cut to 8 layers (LLM_7B_LAYERS). For each: its first
+     models cut to 4 layers (LLM_7B_LAYERS). For each: its first
      two layers at full width in float32 on the card against the CPU; the
      bf16 logits against the float32 model's, int8's against the float32
      model of its stored weights after a check of every code (cosine); 8
@@ -138,7 +139,7 @@ ingest, the recall/QPS harness and the benchmark entry point, failing
      0.95 flat, >= 0.93 IVF; K1, K2 and K5, or K7, launched); the blocked
      device oracle (`datasets._oracle_topk_device`, 262,144-row blocks)
      against the numpy one on that corpus (recall >= 0.999, every mismatch
-     a float64 near-tie within 1e-5); run.main's hnsw tier at 16,384 rows
+     a float64 near-tie within 1e-5); run.main's hnsw tier at 8,192 rows
      (a one-core build); hnsw_recall at memex_tpu's test configuration
      (8,192 x 384 around 2,048 centres, 64 queries, seed 4242): the
      native HNSW at the reference's M = 16, ef_construction = 200,
@@ -157,6 +158,25 @@ ingest, the recall/QPS harness and the benchmark entry point, failing
      draw bit for bit, the sharded IVF 0.93 and its refine variant 0.95;
      its compact line and each stage's seconds are printed, and its
      K1-K6 launches join the kernels line.
+ 12. the last programs that ran memex_tpu, ported: bench.main's
+     ivf_prune_realtext and sotu_e2e must be {"skipped": "reference
+     corpus not present"} (no upstream document beside the checkout), as
+     memex_tpu's; then `bench_realtext_ivf(path=SURVEY.md)` at 16,384
+     windows and full MiniLM-L12 width (the bulk ingest path's roofline,
+     each IVF tier's calibrated operating point, tie-aware recall@10 >=
+     0.95 for float32 and int8_refine, union clusters; K5 launched) and
+     `bench_sotu(path=SURVEY.md)` (windows, ingest_s, query p50, int8 vs
+     float32 recall@10 >= 0.9; K2 launched), with the weights probe
+     refused (no connection is opened); the four flat sweeps
+     (memex_tpu_torch/benchmarks/: keep2_validate, int4_refine_sweep,
+     int4_bank_sweep, int4_bank_sweep2) at 1,048,576 x 384 through
+     main(), their rows' keys and recall@10 >= 0.95 (K2 and K4
+     launched), and every K2/K4 combination they launch held bit-equal
+     to its plain version at their arguments (K4 at S = 4096 is new);
+     then `memex_tpu_torch.clippy` against a port server on an int8
+     store: load-file SURVEY.md, ask with --local-llm on phase 6's
+     TinyLlama-geometry checkpoint (bf16, tokens streamed one by one;
+     first-token and total ms), forget; the ask's search launched K2.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
@@ -164,7 +184,9 @@ each: HTTP for K1, K2 and K5, IVFIndex.search for K6 and K7, the 1M-row
 searches for K3 and K4, phase 5's sharded path for K1-K5, phase 7's
 server on the fine-tuned encoder for K1, phase 8's two ranks for K1-K5,
 phase 9's searches for K1 and its int8q reranks for K2, phase 10's
-harness searches for K1-K5, and phase 11's bench stages for K1-K6),
+harness searches for K1-K5, phase 11's bench stages for K1-K6, and
+phase 12's real-text stages for K5 and K2, its sweeps for K2 and K4 and
+clippy's search for K2),
 errors (phase 5's and phase 8's shard banks included) and times at Q =
 32: the kernel's, its plain version's, its bound (the larger of the bytes
 it must move at 3.35 TB/s and its operations at the card's peak for their
@@ -263,8 +285,8 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def plain_ms(fn) -> float:
-    """The plain versions take 40-200 ms a call: 5 runs after 1 warmup."""
-    return cuda_ms(fn, runs=5, warmup=1)
+    """The plain versions take 40-1,500 ms a call: 3 runs after 1 warmup."""
+    return cuda_ms(fn, runs=3, warmup=1)
 
 
 def unit_rows(n: int, d: int, gen, device):
@@ -561,7 +583,7 @@ def write_checkpoint(model_dir: str, seed: int) -> None:
 
 
 def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: str = "tpu",
-           n_docs: int = 200, model: str = "model", clients: int = 32,
+           n_docs: int = 100, model: str = "model", clients: int = 32,
            tag: str = "phase2") -> int:
     """One server run on VECTOR_CONNECTION={scheme}://{work}/{store} with
     n_docs documents and EMBEDDING_MODEL={work}/{model}; returns the
@@ -1531,7 +1553,7 @@ LLM_DECODE_COS = 0.99   # cached decode against one prefill, per position
 # Depth of the 7B-class runs (Llama-2-7B has 32 layers, GPT-J-6B 28): every
 # width is the published one, and every check runs, but the smoke's time
 # budget holds a quarter of their layers. TinyLlama runs at full depth.
-LLM_7B_LAYERS = 8
+LLM_7B_LAYERS = 4
 
 
 def llm_models():
@@ -2929,7 +2951,7 @@ HARNESS_BARS = {"flat": 0.95, "flat_bf16": 0.95, "flat_int8": 0.95, "ivf_int8": 
 ORACLE_BLOCK = 262144
 ORACLE_RECALL = 0.999
 ORACLE_TIE = 1e-5    # a mismatch's float64 score from the 10th best's
-HNSW_RUN_N = 16384
+HNSW_RUN_N = 8192
 HNSW_N, HNSW_CENTRES, HNSW_Q, HNSW_SEED = 8192, 2048, 64, 4242  # memex_tpu's test
 LLM_BENCH_GEOMETRY = "tinyllama-1.1b"
 
@@ -3161,9 +3183,10 @@ def bench_stage_seconds(docs: list[dict]) -> dict:
     return out
 
 
-def phase11(label: str, work: str, device: str = "cuda") -> dict:
+def phase11(label: str, work: str, device: str = "cuda") -> tuple[dict, dict]:
     """bench.main on the card (its recall_vs_hnsw `skipped`), then that
-    stage alone at 8,192 rows. Returns the launches of both, by kernel."""
+    stage alone at 8,192 rows. Returns the launches of both, by kernel,
+    and bench.main's `e2e` document."""
     import contextlib
     import io
 
@@ -3251,6 +3274,275 @@ def phase11(label: str, work: str, device: str = "cuda") -> dict:
         check(hnsw_launches[name] > 0, f"recall_vs_hnsw launched {name} 0 times")
     for name, n in hnsw_launches.items():
         launches[name] += n
+    return launches, e2e
+
+
+# -- phase 12 ------------------------------------------------------------------
+# The last code that ran memex_tpu, ported: bench.py's two real-text stages
+# on SURVEY.md (real English prose in the repository; the upstream demo
+# document they read by default is not), the root benchmarks/ sweeps at 1M x
+# 384, and clippy against a port server with --local-llm on phase 6's
+# TinyLlama-geometry checkpoint. Nothing here reaches the network:
+# `_resolve_weights`' probe is refused (random weights, reason recorded).
+
+REALTEXT_PATH = os.path.join(ROOT, "SURVEY.md")
+REALTEXT_WINDOWS = 16384
+SKIPPED_STAGE = {"skipped": "reference corpus not present"}
+# Tie-aware recall@10 of the tiers with an exact rerank (memex_tpu's record on
+# its text, BENCH_FULL.json: float32 0.9984, int8_refine 0.9969); int8's
+# quantization floor (0.7344 there) has no bar. sotu_e2e's int8 store against
+# float32 on the same embeddings (1.0 there).
+REALTEXT_BAR = {"float32": 0.95, "int8_refine": 0.95}
+SOTU_BAR = 0.9
+SWEEP_BAR = 0.95  # every sweep row holds the flat tiers' recall bar
+SWEEP_ROW_KEYS = {
+    "keep2_validate": {"variant", "qps", "p50_batch_ms", "recall_at_10", "compile_s"},
+    "int4_bank_sweep": {"variant", "qps", "p50_batch_ms", "recall_at_10", "compile_s"},
+    "int4_refine_sweep": {"variant", "qps", "p50_batch_ms", "recall_at_10"},
+    "int4_bank_sweep2": {"variant", "recall", "misses"},
+}
+# Every (kernel, banks, deferred unpack, keep2) the sweeps launch; phase 1
+# holds K2 at banks 4 and 8 and K4 at 8 and 16, so K4 at 32 (S = 4096) is
+# new. Each is held bit-equal at the sweeps' arguments (every row, no mask).
+SWEEP_COMBOS = (
+    ("K2", 4, None, False), ("K2", 4, None, True), ("K2", 8, None, False),
+    ("K4", 8, True, False), ("K4", 8, False, False), ("K4", 16, True, False),
+    ("K4", 16, False, False), ("K4", 8, True, True), ("K4", 16, True, True),
+    ("K4", 32, True, False),
+)
+CLIPPY_QUESTION = "how does the inverted file index choose which clusters to probe?"
+
+
+class _Offline:
+    """socket.create_connection refused while inside: bench's weights probe
+    records the offline reason instead of opening a connection."""
+
+    def __enter__(self):
+        self.saved = socket.create_connection
+
+        def refuse(*a, **kw):
+            raise OSError("the smoke opens no network connection")
+
+        socket.create_connection = refuse
+
+    def __exit__(self, *exc):
+        socket.create_connection = self.saved
+
+
+def phase12_realtext(label: str) -> dict:
+    """bench_realtext_ivf on SURVEY.md at 16,384 windows, full MiniLM-L12
+    width; its launches (K5 in the IVF tiers)."""
+    from memex_tpu_torch import bench
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    os.environ.pop("MEMEX_BENCH_REALTEXT_WINDOWS", None)
+    ft.reset_launches()
+    with _Offline():
+        out = bench.bench_realtext_ivf("cuda", path=REALTEXT_PATH)
+    path = dict(ft.LAUNCHES)
+    check(out.get("windows") == REALTEXT_WINDOWS, f"ivf_prune_realtext gave {out}")
+    check(out["weights"] == "random" and "offline" in out["weights_fallback_reason"],
+          f"ivf_prune_realtext weights {out['weights']}")
+    print(f"[{label}] phase12 ivf_prune_realtext windows={out['windows']} encode_s="
+          f"{out['encode_s']} encode_windows_per_s={out['encode_windows_per_s']} "
+          f"encode_roofline={json.dumps(out['encode_roofline'])} mean_pairwise_cos="
+          f"{out['mean_pairwise_cos']} weights={out['weights']}", flush=True)
+    for tier in ("int8", "int8_refine", "float32"):
+        row = out[tier]
+        pt = row["operating_point"]
+        rec = row["recall_at_10_vs_exact_f32"]
+        bar = REALTEXT_BAR.get(tier)
+        print(f"[{label}] phase12 ivf_prune_realtext {tier} nprobe={pt['nprobe']} "
+              f"prune_margin={pt['prune_margin']} recall_vs_full={pt['recall_vs_full']} "
+              f"tie_recall_at_10={rec} (bar {bar}) id_recall_at_10={row['id_recall_at_10']} "
+              f"union_clusters full={row['union_clusters_full']} "
+              f"pruned={row['union_clusters_pruned']}", flush=True)
+        check(0.0 <= rec <= 1.0 and (bar is None or rec >= bar),
+              f"ivf_prune_realtext {tier}: tie-aware recall@10 {rec} < {bar}")
+        check(row["union_clusters_pruned"] <= row["union_clusters_full"],
+              f"ivf_prune_realtext {tier}: the margin grew the union")
+    check(path["ivf_batch"] > 0, f"ivf_prune_realtext launched ivf_batch 0 times: {path}")
+    return path
+
+
+def phase12_sotu(label: str) -> dict:
+    """bench_sotu on SURVEY.md; its launches (K2 in the int8 store)."""
+    from memex_tpu_torch import bench
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    ft.reset_launches()
+    with _Offline():
+        out = bench.bench_sotu("cuda", path=REALTEXT_PATH)
+    path = dict(ft.LAUNCHES)
+    print(f"[{label}] phase12 sotu_e2e windows={out['windows']} ingest_s={out['ingest_s']} "
+          f"query_p50_ms={out['query_p50_ms']} top3_score={out['top3_score']} "
+          f"recall_at_10_int8_vs_f32={out['recall_at_10_int8_vs_f32']} (bar {SOTU_BAR}) "
+          f"weights={out['weights']}; K2 launches={path['fused_topk_int8q']}", flush=True)
+    check(out["windows"] > 10 and out["top3_score"] is not None, f"sotu_e2e gave {out}")
+    check(out["recall_at_10_int8_vs_f32"] >= SOTU_BAR,
+          f"sotu_e2e int8 vs float32 recall@10 {out['recall_at_10_int8_vs_f32']} < {SOTU_BAR}")
+    check(path["fused_topk_int8q"] > 0, "sotu_e2e launched fused_topk_int8q 0 times")
+    return path
+
+
+def phase12_sweeps(label: str) -> dict:
+    """The four sweeps at 1M x 384 through their main(); their launches (K2
+    and K4)."""
+    import importlib
+
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    launches = dict.fromkeys(REPLACES, 0)
+    for name, keys in SWEEP_ROW_KEYS.items():
+        mod = importlib.import_module(f"memex_tpu_torch.benchmarks.{name}")
+        t0 = time.perf_counter()
+        ft.reset_launches()
+        out = mod.main("cuda", N_ROWS)
+        path = dict(ft.LAUNCHES)
+        rows = out["variants"] if name == "int4_bank_sweep2" else out
+        for row in rows:
+            check(set(row) == keys, f"{name} row keys {sorted(row)}")
+            rec = row.get("recall_at_10", row.get("recall"))
+            check(rec >= SWEEP_BAR, f"{name} {row['variant']}: recall@10 {rec} < {SWEEP_BAR}")
+        kernels = ["fused_topk_int4q"] + ([] if name == "int4_bank_sweep"
+                                          else ["fused_topk_int8q"])
+        for kernel in kernels:
+            check(path[kernel] > 0, f"{name} launched {kernel} 0 times")
+        print(f"[{label}] phase12 {name} n={N_ROWS} rows={len(rows)} seconds="
+              f"{time.perf_counter() - t0:.1f} launches K2={path['fused_topk_int8q']} "
+              f"K4={path['fused_topk_int4q']}", flush=True)
+        for k, n in path.items():
+            launches[k] += n
+    return launches
+
+
+def phase12_combos(label: str) -> None:
+    """Every K2/K4 combination the sweeps launch, bank against the plain
+    version at the sweeps' arguments (bit-equal: both are exact integer
+    dots)."""
+    import torch
+
+    from memex_tpu_torch.benchmarks import flat_sweep
+    from memex_tpu_torch.ops import fused_topk as ft
+
+    c = flat_sweep.make_case("cuda", N_ROWS, batches=1)
+    q = c.oracle_q
+    q8, _ = ft.quantize_rows_int8(q)
+    for kernel, banks, deferred, keep2 in SWEEP_COMBOS:
+        if kernel == "K2":
+            kw = dict(count=N_ROWS, banks=banks, keep2=keep2)
+            got = ft.fused_score_bank_int8q_cuda(c.db8, c.scales, q8, **kw)
+            want = ft.int8q_bank_reference(c.db8, c.scales, q8, **kw)
+            got, want = list(got[0] + got[1]), list(want[0] + want[1])
+            new = banks not in (4, 8)
+        else:
+            kw = dict(count=N_ROWS, banks=banks, deferred=deferred, keep2=keep2)
+            got = list(ft.int4q_candidates_cuda(c.db4, c.scales, q, **kw))
+            want = list(ft.int4q_candidates_reference(c.db4, c.scales, q, **kw))
+            new = banks not in (8, 16)
+        what = (f"{kernel} S={banks * 128} "
+                f"{'' if deferred is None else ('deferred ' if deferred else 'shift ')}"
+                f"keep2={keep2} Q={q.shape[0]} count={N_ROWS}")
+        bit_equal(got, want, f"sweep combination {what}")
+        print(f"[{label}] phase12 {what} bank bit_equal=True"
+              f"{' (not held by phase 1)' if new else ''}", flush=True)
+    del c
+    torch.cuda.empty_cache()
+
+
+def phase12_clippy(label: str, seed: int, work: str) -> int:
+    """`python -m memex_tpu_torch.clippy`'s commands against a port server
+    on an int8 store (phase 2's encoder checkpoint): load-file SURVEY.md,
+    ask with --local-llm on phase 6's TinyLlama-geometry checkpoint (bf16
+    on the card, tokens streamed), forget. Returns the ask's K2 launches."""
+    import contextlib
+    import io
+
+    from memex_tpu_torch import clippy
+
+    toml = os.path.join(work, "llm.toml")
+    check(os.path.exists(toml), "phase 6's LLM config is missing")
+    model_dir = os.path.join(work, "model")
+    if not os.path.exists(model_dir):
+        write_checkpoint(model_dir, seed)
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, EMBEDDING_MODEL=model_dir, MEMEX_FAKE_LLM="1",
+               DATABASE_CONNECTION=f"sqlite://{work}/clippy.db",
+               VECTOR_CONNECTION=f"tpu://{work}/vectors_clippy?dtype=int8", HOST="127.0.0.1",
+               PORT=str(port),
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    log_path = os.path.join(work, "server_clippy.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
+             "--device", "cuda"], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            check(proc.poll() is None, f"server exited with {proc.returncode}")
+            try:
+                http("GET", f"{base}/api/health", timeout=5)
+                break
+            except OSError:
+                check(time.monotonic() < deadline, "server did not come up in 300s")
+                time.sleep(0.5)
+        local = clippy.LocalAnswerer(toml, "cuda")
+
+        def run(args: list[str]) -> str:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = clippy.main(["--host", base, *args], local=local)
+            check(rc == 0, f"clippy {args[-2:]} exited {rc}")
+            print(f"[{label}] phase12 clippy {' '.join(args[-2:])[:60]!r} seconds="
+                  f"{time.perf_counter() - t0:.3f}", flush=True)
+            return out.getvalue()
+
+        check("ingest completed" in run(["load-file", REALTEXT_PATH]), "clippy load-file failed")
+        before = _launches(base, "fused_topk_int8q")
+        said = run(["--local-llm", toml, "--device", "cuda", "ask", CLIPPY_QUESTION])
+        launches = _launches(base, "fused_topk_int8q") - before
+        last = local.last
+        check("[2 context segments" in said, f"clippy ask: {said[-200:]!r}")
+        check(len(last["pieces"]) > 1 and "".join(last["pieces"]) in said,
+              f"clippy ask streamed {len(last['pieces'])} pieces")
+        print(f"[{label}] phase12 clippy ask --local-llm TinyLlama-1.1B bf16: pieces streamed="
+              f"{len(last['pieces'])} chars={len(''.join(last['pieces']))} first_token_ms="
+              f"{last['first_token_ms']:.1f} total_ms={last['total_ms']:.1f}; the search's K2 "
+              f"launches={launches}", flush=True)
+        check(launches > 0, "clippy's search launched fused_topk_int8q 0 times")
+        check("deleted" in run(["forget"]), "clippy forget failed")
+        return launches
+    except BaseException:
+        with open(log_path) as fh:
+            sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
+        raise
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def phase12(label: str, seed: int, work: str, bench_e2e: dict) -> dict:
+    """Phase 11's bench.main recorded the real-text stages as skipped (no
+    upstream document beside the checkout); then each ported program.
+    Returns their launches, by kernel."""
+    for stage in ("ivf_prune_realtext", "sotu_e2e"):
+        check(bench_e2e.get(stage) == SKIPPED_STAGE,
+              f"bench.main recorded {stage} as {bench_e2e.get(stage)}")
+    print(f"[{label}] phase12 bench.main recorded ivf_prune_realtext and sotu_e2e as "
+          f"{SKIPPED_STAGE}", flush=True)
+    launches = dict.fromkeys(REPLACES, 0)
+    for part in (phase12_realtext(label), phase12_sotu(label), phase12_sweeps(label)):
+        for name, n in part.items():
+            launches[name] += n
+    phase12_combos(label)
+    launches["fused_topk_int8q"] += phase12_clippy(label, seed, work)
+    print(f"[{label}] phase12 launches {launches}", flush=True)
     return launches
 
 
@@ -3342,9 +3634,15 @@ def main(argv: list[str] | None = None) -> int:
             phase_done(10)
             # Phase 11, the benchmark entry point through bench.main: its
             # stages run K1-K6.
-            for name, n in phase11(label, work).items():
+            bench_launches, bench_e2e = phase11(label, work)
+            for name, n in bench_launches.items():
                 launches[name] += n
             phase_done(11)
+            # Phase 12, the real-text stages, the flat sweeps and clippy:
+            # K5, K2 and K4.
+            for name, n in phase12(label, args.seed, work, bench_e2e).items():
+                launches[name] += n
+            phase_done(12)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(f"[{label}] smoke seconds={time.perf_counter() - t_all:.1f}", flush=True)

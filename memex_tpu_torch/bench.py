@@ -10,14 +10,21 @@ residual-refine tiers, and larger query batches for the fast tiers. The
 headline is the fastest row clearing the 0.95 recall bar against the exact
 float32 oracle.
 
-Stages, in bench.py's order and under its keys: `kernels`, `scale_10M`
-(the 10M IVF through K2, K5 and K6 against a true-float32 oracle),
-`sharded_ivf_1M`, `recall_vs_hnsw`, `llm_decode` (llm_bench in a
-subprocess), `e2e` (ingest and search through the worker and the batcher),
-`serve_1M` (256 clients on a 1M-row store, then HTTP) and
-`bulk_load_1M_s`. bench.py's `ivf_prune_realtext` and `sotu_e2e` read a
-text corpus and MiniLM weights that the repository does not hold; they are
-not ported.
+Stages, every one of bench.py's, in its order and under its keys:
+`kernels`, `scale_10M` (the 10M IVF through K2, K5 and K6 against a
+true-float32 oracle), `sharded_ivf_1M`, `recall_vs_hnsw`, `llm_decode`
+(llm_bench in a subprocess), `ivf_prune_realtext` (16,384 windows of real
+text through the encoder's bulk ingest path, its roofline, then the IVF
+tiers on those embeddings, K5), `sotu_e2e` (the same text through the
+worker into an int8 store and searched through the batcher, K2), `e2e`
+(ingest and search through the worker and the batcher), `serve_1M` (256
+clients on a 1M-row store, then HTTP) and `bulk_load_1M_s`. The two
+real-text stages read the upstream memex project's demo document where
+bench.py reads it (SOTU_PATH) and record {"skipped": ...} without it;
+their `path=` argument points them at another text. They use real
+all-MiniLM-L12-v2 weights where a directory holds them
+(`_resolve_weights`) and seeded random ones otherwise, with the reason
+recorded.
 
 Output, as bench.py's: after every tier and stage the full document, then
 a compact line under 1,500 characters, always the last line. The full
@@ -31,7 +38,9 @@ time left; MEMEX_BENCH_SKIP_<STAGE> skips one stage (recorded);
 MEMEX_BENCH_SKIP_10M skips scale_10M (unrecorded); MEMEX_BENCH_10M_BLOCKS
 (default 10) sets scale_10M's rows in units of 1,048,576;
 MEMEX_BENCH_BUILD_HNSW=1 lets recall_vs_hnsw build its 1M-row graph (one
-core, ~40 minutes) when it is not cached.
+core, ~40 minutes) when it is not cached; MEMEX_BENCH_REALTEXT_WINDOWS
+(default 16,384) sets ivf_prune_realtext's windows; MEMEX_MINILM_DIR
+names a weights directory.
 
 Timing: a chain of query batches is timed by CUDA events, from before its
 first launch to after its last one ends, best of REPS chains (bench.py
@@ -65,6 +74,10 @@ from .scan_bench import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The full-document sidecar unless MEMEX_BENCH_DOC_PATH says otherwise.
 DOC_PATH = os.path.join(ROOT, "build", "memex_tpu_torch", "BENCH_FULL.json")
+# The real-text stages' corpus, where bench.py reads it: the upstream memex
+# project's demo document, in its checkout beside this repository.
+SOTU_PATH = os.path.join(os.path.dirname(ROOT), "reference", "example_docs",
+                         "state_of_the_union_2023.txt")
 
 N = 1_048_576
 D = 384
@@ -1031,17 +1044,273 @@ def bench_llm(device, *, geometry: str = "tinyllama-1.1b", prompt_len: int = 128
     return out
 
 
+# -- real text ------------------------------------------------------------------------------
+
+
+def _resolve_weights() -> tuple[str, str, str | None]:
+    """Real all-MiniLM-L12-v2 weights when a directory holds them; one
+    bounded download attempt (`python -m memex_tpu_torch download-model`)
+    when huggingface.co answers within 5 s; otherwise seeded random
+    weights with the reason recorded. One weights directory serves both
+    packages: the candidates are memex_tpu's. Returns (embedding_model
+    argument, "real" | "random", the fallback's reason or None)."""
+    import subprocess
+
+    needed = ("model.safetensors", "config.json", "vocab.txt")
+    cands = [os.environ.get("MEMEX_MINILM_DIR"),
+             os.path.join(ROOT, "models", "all-MiniLM-L12-v2"),
+             os.path.expanduser("~/.cache/memex/models/all-MiniLM-L12-v2")]
+    for c in cands:
+        if c and all(os.path.exists(os.path.join(c, f)) for f in needed):
+            return c, "real", None
+    try:
+        socket.create_connection(("huggingface.co", 443), timeout=5).close()
+    except OSError as exc:
+        return "random", "random", f"offline, cannot fetch all-MiniLM-L12-v2 ({exc})"
+    tgt = cands[1]
+    try:
+        r = subprocess.run([sys.executable, "-m", "memex_tpu_torch", "download-model",
+                            "--target", tgt], capture_output=True, text=True, timeout=900,
+                           cwd=ROOT)
+    except (OSError, subprocess.SubprocessError) as exc:
+        return "random", "random", f"download error: {exc}"
+    if r.returncode == 0 and all(os.path.exists(os.path.join(tgt, f)) for f in needed):
+        return tgt, "real", None
+    return "random", "random", f"download failed: {r.stderr[-160:]}"
+
+
+def _read_corpus(path: str | None) -> str | None:
+    """The text at `path` (default SOTU_PATH), or None when it is absent."""
+    path = SOTU_PATH if path is None else path
+    if not os.path.exists(path):
+        return None
+    with open(path, "r", encoding="utf-8") as fh:
+        return fh.read()
+
+
+def realtext_windows(text: str, n: int, rng: np.random.Generator) -> list[str]:
+    """bench.py's corpus: n windows, each three consecutive sentences (of
+    more than 20 characters) from a random start, tagged with its index so
+    no two are equal."""
+    sents = [s.strip() for s in text.replace("\n", " ").split(".") if len(s.strip()) > 20]
+    windows = []
+    for i in range(n):
+        j = int(rng.integers(0, len(sents) - 3))
+        windows.append(f"{sents[j]}. {sents[j + 1]}. {sents[j + 2]}. (window {i})")
+    return windows
+
+
+def bench_realtext_ivf(device, *, path: str | None = None) -> dict:
+    """bench.py's `ivf_prune_realtext`: MEMEX_BENCH_REALTEXT_WINDOWS
+    (default 16,384) windows of the text at `path` through the full
+    MiniLM-L12 encoder on its bulk ingest path (tokenize, device and
+    fetch seconds, the encoder's TFLOP/s), then the IVF tier (C = 64,
+    rerank 1,024) in int8 (K5's int8 body), int8_refine and float32
+    (scan_precision="highest", K5's exact mode) on those embeddings, each
+    with its (nprobe, prune_margin) calibrated to 0.95 recall, scored on
+    64 held-out windows against the float64 oracle: tie-aware recall (a
+    returned row counts when its true score reaches the oracle's 10th
+    best; ~50 windows share each sentence triple) and id recall, and
+    each tier's routed union with and without the margin. `path`
+    defaults to SOTU_PATH; without the file: {"skipped": ...}, as
+    bench.py."""
+    from .embed import EmbeddingEngine
+    from .index.ivf import IVFIndex
+    from .ops.ivf_batch import route_union
+    from .text import encode_windows
+
+    device = torch.device(device)
+    text = _read_corpus(path)
+    if text is None:
+        return {"skipped": "reference corpus not present"}
+    rng = np.random.default_rng(7)
+    NW = int(os.environ.get("MEMEX_BENCH_REALTEXT_WINDOWS", "16384"))
+    windows = realtext_windows(text, NW, rng)
+
+    model_arg, weights, reason = _resolve_weights()
+    # float16 fetch: half the bytes of the copy back, as bench.py.
+    engine = EmbeddingEngine(model_dir=model_arg, fetch_dtype="float16", device=device)
+    t0 = time.perf_counter()
+    ids_all, mask_all = encode_windows(windows, engine.tokenizer, engine.max_seq_length)
+    tokenize_s = time.perf_counter() - t0
+    B = engine.max_batch
+    # Warm the bulk path before the timed pass (a kernel's first use would
+    # land in device_s).
+    engine._encode_padded(ids_all[: 8 * B], mask_all[: 8 * B])
+    phases: dict = {}
+    t0 = time.perf_counter()
+    vecs = engine._encode_bulk(ids_all, mask_all, np.empty((NW, engine.dim), np.float32),
+                               phases=phases)
+    encode_pass_s = time.perf_counter() - t0
+    # The uploads overlap the dispatch; the sync is the device time left.
+    device_s = phases["dispatch_s"] + phases["device_sync_s"]
+    fetch_s = phases["fetch_s"]
+    encode_s = tokenize_s + encode_pass_s
+    vecs = vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), 1e-9)
+    # Encoder operations a token: the layers' projections (4 D^2) and FFN
+    # (2 D I) multiply-adds, and the attention products (2 L D), x 2.
+    cfg = engine.cfg
+    L = engine.max_seq_length
+    per_tok = (2 * cfg.num_layers * (4 * cfg.hidden_size ** 2
+                                     + 2 * cfg.hidden_size * cfg.intermediate_size)
+               + 4 * cfg.num_layers * L * cfg.hidden_size)
+    tflops = NW * L * per_tok / max(device_s, 1e-9) / 1e12
+    on_card = device.type == "cuda"
+    encode_roofline = {
+        "tokenize_s": round(tokenize_s, 2),
+        "dispatch_s": round(phases["dispatch_s"], 2),
+        "device_s": round(device_s, 2),
+        "fetch_s": round(fetch_s, 2),
+        "fetch_dtype": engine.fetch_dtype,
+        "windows_per_s_device": round(NW / max(device_s, 1e-9), 1),
+        # Against one H100's dense bf16 peak; no device figure off a card.
+        "achieved_tflops": round(tflops, 1) if on_card else None,
+        "pct_peak_mxu": round(100.0 * tflops / PEAK_BF16_TFLOPS, 1) if on_card else None,
+        "bound": max((("tokenize", tokenize_s), ("device", device_s), ("fetch", fetch_s)),
+                     key=lambda kv: kv[1])[0],
+    }
+
+    qs = vecs[rng.choice(NW, size=64, replace=False)]
+    # Near-duplicate windows tie below float32's resolution: recall is
+    # scored tie-aware (primary) and by ids.
+    scores_all = (qs @ vecs.T).astype(np.float64)
+    exact = np.argsort(-scores_all, axis=1)[:, :K]
+    kth = scores_all[np.arange(len(qs)), exact[:, K - 1]]
+    # Anisotropy: random-weight embeddings sit at pairwise cos ~0.99.
+    samp = vecs[rng.choice(NW, size=256, replace=False)]
+    cosm = samp @ samp.T
+    mean_cos = float((cosm.sum() - np.trace(cosm)) / (len(samp) ** 2 - len(samp)))
+    out = {"windows": NW, "encode_s": round(encode_s, 1),
+           "encode_windows_per_s": round(NW / encode_s, 1),
+           "encode_roofline": encode_roofline,
+           "mean_pairwise_cos": round(mean_cos, 4),
+           "weights": weights}
+    if reason:
+        out["weights_fallback_reason"] = reason
+    q_dev = torch.from_numpy(qs).to(device)
+    for tier in ("int8", "int8_refine", "float32"):
+        dtype = "int8" if tier.startswith("int8") else tier
+        # A bank-wide exact rerank (clamped to the bank in search) orders
+        # what the coarse scan cannot; float32 also scans exactly.
+        ivf = IVFIndex(dim=vecs.shape[1], n_clusters=64, nprobe=8, dtype=dtype, rerank=1024,
+                       refine=tier == "int8_refine",
+                       scan_precision="highest" if dtype == "float32" else "default",
+                       device=device)
+        ivf.build(vecs, list(range(NW)))
+        # Calibrated on corpus-sampled queries, scored on the held-out qs.
+        pt = ivf.calibrate_operating_point(target_recall=0.95)
+        hits = ivf.search(qs, K)
+        got = [[int(s) for s, _ in hits[i]] for i in range(len(qs))]
+        rec = float(np.mean([np.sum(scores_all[i, got[i]] >= kth[i]) / K
+                             for i in range(len(qs))]))
+        rec_id = float(np.mean([len(set(got[i]) & set(exact[i].tolist())) / K
+                                for i in range(len(qs))]))
+        na_full = na_pr = route_union(ivf.centroids, q_dev, ivf.nprobe)[1]
+        if ivf.prune_margin is not None:
+            na_pr = route_union(ivf.centroids, q_dev, ivf.nprobe,
+                                prune_margin=ivf.prune_margin)[1]
+        out[tier] = {
+            "operating_point": pt,
+            "recall_at_10_vs_exact_f32": round(rec, 4),
+            "id_recall_at_10": round(rec_id, 4),
+            "union_clusters_full": int(na_full[0]),
+            "union_clusters_pruned": int(na_pr[0]),
+        }
+        del ivf
+    return out
+
+
+SOTU_QUERIES = (
+    "jobs and the state of the economy",
+    "the war in ukraine and our allies",
+    "lowering the price of insulin and health care",
+    "police reform and public safety",
+    "american manufacturing and infrastructure",
+    "climate and clean energy investment",
+    "taxes on the wealthiest corporations",
+    "fentanyl and the opioid epidemic",
+)
+
+
+def bench_sotu(device, *, path: str | None = None) -> dict:
+    """bench.py's `sotu_e2e`: the text at `path` through the serving stack
+    on an int8 store (`tpu://...?dtype=int8`, queries quantized: K2):
+    one Ingest task through the queue and the worker (windows, the full
+    MiniLM-L12 encoder, the store), 48 searches through the batcher (p50),
+    and the store's top-10 for 8 queries against the float32 oracle on
+    the same embeddings. `path` defaults to SOTU_PATH; without the file:
+    {"skipped": ...}, as bench.py."""
+    from .db import queue
+    from .store.registry import _REGISTRY
+    from .worker import Worker
+
+    text = _read_corpus(path)
+    if text is None:
+        return {"skipped": "reference corpus not present"}
+    model_arg, weights, reason = _resolve_weights()
+    tmp = tempfile.mkdtemp(prefix="memex_sotu_")
+    rt = _runtime(device, tmp, f"tpu://{tmp}/vec?dtype=int8", "sotu.db",
+                  embedding_model=model_arg)
+    worker = None
+    try:
+        # Every encode bucket the document hits, before the timing.
+        segments, vecs = rt.engine.encode(text)
+        t0 = time.perf_counter()
+        queue.enqueue(rt.db, "sotu", text, queue.TaskType.Ingest)
+        worker = Worker(rt, poll_interval=0.005)
+        if not worker.drain(timeout=600):
+            raise RuntimeError("the worker did not drain the ingest task in 600 s")
+        ingest_s = time.perf_counter() - t0
+        store = rt.store("sotu")
+
+        rt.search_batcher.search("sotu", "warm the fused query path", 3)
+        lat = []
+        for q in SOTU_QUERIES * 6:
+            t0 = time.perf_counter()
+            rt.search_batcher.search("sotu", q, 3)
+            lat.append(time.perf_counter() - t0)
+        lat = np.sort(np.array(lat))
+
+        # The int8 store's top-10 against the exact float32 oracle on the
+        # same embeddings.
+        qvecs = rt.engine.encode_batch(list(SOTU_QUERIES))
+        exact = np.argsort(-(qvecs @ vecs.T), axis=1)[:, :10]
+        hits = store.search_batch(qvecs, 10)
+        id_of = {f: i for i, f in enumerate(store.index.ids)}
+        rec = [len({id_of.get(h.id, -1) for h in hits[qi]} & set(exact[qi].tolist())) / 10.0
+               for qi in range(len(SOTU_QUERIES))]
+        out = {
+            "windows": len(segments),
+            "ingest_s": round(ingest_s, 2),
+            "query_p50_ms": round(float(lat[len(lat) // 2] * 1e3), 2),
+            "top3_score": round(float(hits[0][0].score), 4) if hits[0] else None,
+            "recall_at_10_int8_vs_f32": round(float(np.mean(rec)), 4),
+            "weights": weights,
+        }
+        if reason:
+            out["weights_fallback_reason"] = reason
+        return out
+    finally:
+        if worker is not None:
+            worker.shutdown()
+        rt.search_batcher.close()
+        _REGISTRY.drop(rt.settings.vector_uri, "sotu")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- serving ------------------------------------------------------------------------------
 
 
-def _runtime(device, tmp: str, vector_uri: str, db_name: str):
+def _runtime(device, tmp: str, vector_uri: str, db_name: str,
+             embedding_model: str = "random"):
     """A TorchRuntime on `device` over a SQLite file and a vector store in
-    tmp, with the full MiniLM-L12 architecture at random weights."""
+    tmp, with the full MiniLM-L12 architecture (random weights unless
+    embedding_model names a checkpoint)."""
     from .config import Settings
     from .runtime import TorchRuntime
 
     settings = Settings.from_env(db_uri=f"sqlite://{tmp}/{db_name}", vector_uri=vector_uri,
-                                 embedding_model="random",
+                                 embedding_model=embedding_model,
                                  upload_dir=os.path.join(tmp, "uploads"))
     return TorchRuntime(settings, device=device)
 
@@ -1411,6 +1680,8 @@ def main(argv: list[str] | None = None) -> int:
         ("sharded_ivf_1M", 420, lambda: bench_sharded_ivf(device)),
         ("recall_vs_hnsw", 300, lambda: bench_recall_vs_hnsw(device)),
         ("llm_decode", 420, lambda: bench_llm(device)),
+        ("ivf_prune_realtext", 360, lambda: bench_realtext_ivf(device)),
+        ("sotu_e2e", 240, lambda: bench_sotu(device)),
         ("e2e", 300, _e2e_merge),
         ("serve_1M", 420, lambda: bench_serve_1m(device)),
         ("bulk_load_1M_s", 150, lambda: round(bench_bulk_load(device), 2)),

@@ -464,8 +464,8 @@ def test_main_skips_for_budget_and_leaves_the_root_record(monkeypatch, tmp_path,
     assert bench.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     full, compact = json.loads(lines[-2]), json.loads(lines[-1])
-    stages = ["scale_10M", "sharded_ivf_1M", "recall_vs_hnsw", "llm_decode", "e2e", "serve_1M",
-              "bulk_load_1M_s"]
+    stages = ["scale_10M", "sharded_ivf_1M", "recall_vs_hnsw", "llm_decode", "ivf_prune_realtext",
+              "sotu_e2e", "e2e", "serve_1M", "bulk_load_1M_s"]
     assert [s["stage"] for s in full["skipped_stages"]] == stages
     assert [s["why"] == "env" for s in full["skipped_stages"]] == [
         s == "llm_decode" for s in stages]
@@ -491,6 +491,8 @@ def test_main_runs_every_stage_under_bench_py_keys(monkeypatch, tmp_path, capsys
         "bench_sharded_ivf": lambda device: {"n": 2},
         "bench_recall_vs_hnsw": lambda device: {"skipped": "x"},
         "bench_llm": lambda device: {"stream_tok_per_s": 1.0, "batch_tok_per_s": 2.0},
+        "bench_realtext_ivf": lambda device: {"encode_windows_per_s": 3.0},
+        "bench_sotu": lambda device: {"windows": 4},
         "bench_e2e": lambda device: {"ingest_docs_per_s": 1.234567},
         "bench_serve_1m": lambda device: {"qps": 5.0, "p50_ms": 1.0, "qps_vs_capability": 0.5},
         "bench_bulk_load": lambda device: 0.123456,
@@ -506,6 +508,9 @@ def test_main_runs_every_stage_under_bench_py_keys(monkeypatch, tmp_path, capsys
     assert e2e["scale_10M"] == {"n": 1} and e2e["sharded_ivf_1M"] == {"n": 2}
     assert e2e["ingest_docs_per_s"] == 1.23 and e2e["bulk_load_1M_s"] == 0.12
     assert e2e["llm_decode"]["stream_tok_per_s"] == 1.0
+    assert e2e["ivf_prune_realtext"] == {"encode_windows_per_s": 3.0}
+    assert e2e["sotu_e2e"] == {"windows": 4}
+    assert compact["encode_windows_per_s"] == 3.0
     assert full["skipped_stages"] == []
     assert compact["llm_stream_ratio"] == 0.5 and compact["serve_1M"]["qps"] == 5.0
     assert compact["errors"] == 0 and len(full["tiers"]) == len(TIERS)
@@ -521,4 +526,4 @@ def test_main_records_a_kernels_failure_and_goes_on(monkeypatch, tmp_path, capsy
     assert bench.main(["--device", "cpu"]) == 0
     compact = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert compact["errors"] == 1 and compact["error_stages"] == ["kernels"]
-    assert compact["value"] == 0.0 and compact["skipped_stages"] == 7
+    assert compact["value"] == 0.0 and compact["skipped_stages"] == 9
