@@ -175,8 +175,8 @@ real-text stages, the flat-tier sweeps and the clippy client, failing
      to its plain version at their arguments (K4 at S = 4096 is new);
      then `memex_tpu_torch.clippy` against a port server on an int8
      store: load-file SURVEY.md, ask with --local-llm on phase 6's
-     TinyLlama-geometry checkpoint (bf16, tokens streamed one by one;
-     first-token and total ms), forget; the ask's search launched K2.
+     TinyLlama-geometry checkpoint (bf16, text streamed as ids decode;
+     first-token, first-piece and total ms, ids against pieces), forget; the ask's search launched K2.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launch counts (summed over the main-path runs of
@@ -198,6 +198,7 @@ for int8 queries; the port never calls it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -582,33 +583,32 @@ def write_checkpoint(model_dir: str, seed: int) -> None:
     save_params(model_dir, cfg, MiniLM(cfg).init_random(seed), vocab=_build_fallback_vocab())
 
 
-def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: str = "tpu",
-           n_docs: int = 100, model: str = "model", clients: int = 32,
-           tag: str = "phase2") -> int:
-    """One server run on VECTOR_CONNECTION={scheme}://{work}/{store} with
-    n_docs documents and EMBEDDING_MODEL={work}/{model}; returns the
-    launches of `kernel` its searches (from `clients` clients) made. An
-    IVF store's searches wait for the Maintain tasks its ingest queued."""
-    model_dir = os.path.join(work, model)
-    if not os.path.exists(model_dir):
-        write_checkpoint(model_dir, seed)
-    name = store.split("?")[0]
+@contextlib.contextmanager
+def port_server(work: str, name: str, env: dict, device: str = "cuda"):
+    """`memex_tpu_torch serve --roles Api,Worker` in `work` under `env`
+    (HOST, PORT and PYTHONPATH set here), logging to server_{name}.log;
+    yields its base URL once /api/health answers. A failure inside prints
+    the log's tail; the server is stopped on the way out."""
     port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    db_path = os.path.join(work, f"{name}.db")
-    env = dict(os.environ, EMBEDDING_MODEL=model_dir,
-               DATABASE_CONNECTION=f"sqlite://{db_path}",
-               VECTOR_CONNECTION=f"{scheme}://{work}/{store}", HOST="127.0.0.1",
-               PORT=str(port), MEMEX_FAKE_LLM="1",
+    env = dict(env, HOST="127.0.0.1", PORT=str(port),
                PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     log_path = os.path.join(work, f"server_{name}.log")
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
-             "--device", "cuda"], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+             "--device", device], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
     try:
-        return _drive_server(f"{label}] [{scheme}://{store}", seed, base, proc, kernel, n_docs,
-                             db_path if scheme == "tpu+ivf" else None, clients, tag)
+        deadline = time.monotonic() + 300
+        while True:
+            check(proc.poll() is None, f"server exited with {proc.returncode}")
+            try:
+                http("GET", f"{base}/api/health", timeout=5)
+                break
+            except OSError:
+                check(time.monotonic() < deadline, "server did not come up in 300s")
+                time.sleep(0.5)
+        yield base
     except BaseException:
         with open(log_path) as fh:
             sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
@@ -620,6 +620,26 @@ def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: st
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+def phase2(label: str, seed: int, work: str, store: str, kernel: str, scheme: str = "tpu",
+           n_docs: int = 100, model: str = "model", clients: int = 32,
+           tag: str = "phase2") -> int:
+    """One server run on VECTOR_CONNECTION={scheme}://{work}/{store} with
+    n_docs documents and EMBEDDING_MODEL={work}/{model}; returns the
+    launches of `kernel` its searches (from `clients` clients) made. An
+    IVF store's searches wait for the Maintain tasks its ingest queued."""
+    model_dir = os.path.join(work, model)
+    if not os.path.exists(model_dir):
+        write_checkpoint(model_dir, seed)
+    name = store.split("?")[0]
+    db_path = os.path.join(work, f"{name}.db")
+    env = dict(os.environ, EMBEDDING_MODEL=model_dir,
+               DATABASE_CONNECTION=f"sqlite://{db_path}",
+               VECTOR_CONNECTION=f"{scheme}://{work}/{store}", MEMEX_FAKE_LLM="1")
+    with port_server(work, name, env) as base:
+        return _drive_server(f"{label}] [{scheme}://{store}", seed, base, kernel, n_docs,
+                             db_path if scheme == "tpu+ivf" else None, clients, tag)
 
 
 def _launches(base: str, kernel: str) -> int:
@@ -646,17 +666,8 @@ def wait_maintenance(label: str, db_path: str, timeout: float = 300.0) -> None:
           f"wait_seconds={time.perf_counter() - t0:.3f}", flush=True)
 
 
-def _drive_server(label: str, seed: int, base: str, proc, kernel: str, n_docs: int,
+def _drive_server(label: str, seed: int, base: str, kernel: str, n_docs: int,
                   maintain_db: str | None, clients: int = 32, tag: str = "phase2") -> int:
-    deadline = time.monotonic() + 300
-    while True:
-        check(proc.poll() is None, f"server exited with {proc.returncode}")
-        try:
-            http("GET", f"{base}/api/health", timeout=5)
-            break
-        except OSError:
-            check(time.monotonic() < deadline, "server did not come up in 300s")
-            time.sleep(0.5)
     rng = random.Random(seed)
     docs = make_docs(rng, n_docs)
     t0 = time.perf_counter()
@@ -2003,28 +2014,11 @@ def phase6_http(label: str, seed: int, work: str, device: str = "cuda") -> None:
     model_dir = os.path.join(work, "model")
     if not os.path.exists(model_dir):
         write_checkpoint(model_dir, seed)
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
     env = {k: v for k, v in os.environ.items() if k not in ("MEMEX_FAKE_LLM", "OPENAI_API_KEY")}
     env.update(EMBEDDING_MODEL=model_dir, LOCAL_LLM_CONFIG=toml,
                DATABASE_CONNECTION=f"sqlite://{work}/llm.db",
-               VECTOR_CONNECTION=f"tpu://{work}/vectors_llm", HOST="127.0.0.1", PORT=str(port),
-               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
-    log_path = os.path.join(work, "server_llm.log")
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
-             "--device", device], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
-    try:
-        deadline = time.monotonic() + 300
-        while True:
-            check(proc.poll() is None, f"server exited with {proc.returncode}")
-            try:
-                http("GET", f"{base}/api/health", timeout=5)
-                break
-            except OSError:
-                check(time.monotonic() < deadline, "server did not come up in 300s")
-                time.sleep(0.5)
+               VECTOR_CONNECTION=f"tpu://{work}/vectors_llm")
+    with port_server(work, "llm", env, device) as base:
         text = " ".join(make_docs(random.Random(seed), 3))
 
         def ask(i: int) -> tuple[float, int, dict]:
@@ -2062,17 +2056,6 @@ def phase6_http(label: str, seed: int, work: str, device: str = "cuda") -> None:
               f"summarize task result {out!r}")
         print(f"[{label}] phase6 http summarize task Completed seconds="
               f"{time.perf_counter() - t0:.3f} summary_chars={len(out['summary'])}", flush=True)
-    except BaseException:
-        with open(log_path) as fh:
-            sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
-        raise
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
 
 
 def phase6(label: str, seed: int, work: str) -> dict:
@@ -2959,7 +2942,6 @@ LLM_BENCH_GEOMETRY = "tinyllama-1.1b"
 def json_lines(fn, argv: list[str]) -> list[dict]:
     """Run an entry point's main(argv), print its stdout and return the
     JSON objects it printed, one a line; it must exit 0."""
-    import contextlib
     import io
 
     out = io.StringIO()
@@ -3187,7 +3169,6 @@ def phase11(label: str, work: str, device: str = "cuda") -> tuple[dict, dict]:
     """bench.main on the card (its recall_vs_hnsw `skipped`), then that
     stage alone at 8,192 rows. Returns the launches of both, by kernel,
     and bench.main's `e2e` document."""
-    import contextlib
     import io
 
     from memex_tpu_torch import bench
@@ -3454,8 +3435,8 @@ def phase12_clippy(label: str, seed: int, work: str) -> int:
     """`python -m memex_tpu_torch.clippy`'s commands against a port server
     on an int8 store (phase 2's encoder checkpoint): load-file SURVEY.md,
     ask with --local-llm on phase 6's TinyLlama-geometry checkpoint (bf16
-    on the card, tokens streamed), forget. Returns the ask's K2 launches."""
-    import contextlib
+    on the card, its text printed piece by piece as the ids decode),
+    forget. Returns the ask's K2 launches."""
     import io
 
     from memex_tpu_torch import clippy
@@ -3465,28 +3446,10 @@ def phase12_clippy(label: str, seed: int, work: str) -> int:
     model_dir = os.path.join(work, "model")
     if not os.path.exists(model_dir):
         write_checkpoint(model_dir, seed)
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
     env = dict(os.environ, EMBEDDING_MODEL=model_dir, MEMEX_FAKE_LLM="1",
                DATABASE_CONNECTION=f"sqlite://{work}/clippy.db",
-               VECTOR_CONNECTION=f"tpu://{work}/vectors_clippy?dtype=int8", HOST="127.0.0.1",
-               PORT=str(port),
-               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
-    log_path = os.path.join(work, "server_clippy.log")
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "memex_tpu_torch", "serve", "--roles", "Api,Worker",
-             "--device", "cuda"], cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
-    try:
-        deadline = time.monotonic() + 300
-        while True:
-            check(proc.poll() is None, f"server exited with {proc.returncode}")
-            try:
-                http("GET", f"{base}/api/health", timeout=5)
-                break
-            except OSError:
-                check(time.monotonic() < deadline, "server did not come up in 300s")
-                time.sleep(0.5)
+               VECTOR_CONNECTION=f"tpu://{work}/vectors_clippy?dtype=int8")
+    with port_server(work, "clippy", env) as base:
         local = clippy.LocalAnswerer(toml, "cuda")
 
         def run(args: list[str]) -> str:
@@ -3505,26 +3468,22 @@ def phase12_clippy(label: str, seed: int, work: str) -> int:
         launches = _launches(base, "fused_topk_int8q") - before
         last = local.last
         check("[2 context segments" in said, f"clippy ask: {said[-200:]!r}")
-        check(len(last["pieces"]) > 1 and "".join(last["pieces"]) in said,
-              f"clippy ask streamed {len(last['pieces'])} pieces")
-        print(f"[{label}] phase12 clippy ask --local-llm TinyLlama-1.1B bf16: pieces streamed="
-              f"{len(last['pieces'])} chars={len(''.join(last['pieces']))} first_token_ms="
-              f"{last['first_token_ms']:.1f} total_ms={last['total_ms']:.1f}; the search's K2 "
-              f"launches={launches}", flush=True)
+        # Random byte-level weights form valid UTF-8 only now and then, so
+        # a piece holds many ids: the first token is the first id on the
+        # host, the first piece the first text printed.
+        check(last["tokens"] > 1 and len(last["pieces"]) > 1
+              and "".join(last["pieces"]) in said,
+              f"clippy ask streamed {last['tokens']} ids in {len(last['pieces'])} pieces")
+        check(last["first_token_ms"] <= last["first_piece_ms"] <= last["total_ms"],
+              f"clippy ask timings out of order: {last}")
+        print(f"[{label}] phase12 clippy ask --local-llm TinyLlama-1.1B bf16: tokens="
+              f"{last['tokens']} pieces={len(last['pieces'])} chars="
+              f"{len(''.join(last['pieces']))} first_token_ms={last['first_token_ms']:.1f} "
+              f"first_piece_ms={last['first_piece_ms']:.1f} total_ms={last['total_ms']:.1f}; "
+              f"the search's K2 launches={launches}", flush=True)
         check(launches > 0, "clippy's search launched fused_topk_int8q 0 times")
         check("deleted" in run(["forget"]), "clippy forget failed")
         return launches
-    except BaseException:
-        with open(log_path) as fh:
-            sys.stderr.write("server log tail:\n" + fh.read()[-4000:] + "\n")
-        raise
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
 
 
 def phase12(label: str, seed: int, work: str, bench_e2e: dict) -> dict:

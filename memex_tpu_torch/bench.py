@@ -19,9 +19,10 @@ tiers on those embeddings, K5), `sotu_e2e` (the same text through the
 worker into an int8 store and searched through the batcher, K2), `e2e`
 (ingest and search through the worker and the batcher), `serve_1M` (256
 clients on a 1M-row store, then HTTP) and `bulk_load_1M_s`. The two
-real-text stages read the upstream memex project's demo document where
-bench.py reads it (SOTU_PATH) and record {"skipped": ...} without it;
-their `path=` argument points them at another text. They use real
+real-text stages read the upstream memex project's demo document from
+reference/example_docs/ in the checkout (SOTU_PATH) and record
+{"skipped": ...} without it; their `path=` argument points them at
+another text. They use real
 all-MiniLM-L12-v2 weights where a directory holds them
 (`_resolve_weights`) and seeded random ones otherwise, with the reason
 recorded.
@@ -74,9 +75,10 @@ from .scan_bench import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The full-document sidecar unless MEMEX_BENCH_DOC_PATH says otherwise.
 DOC_PATH = os.path.join(ROOT, "build", "memex_tpu_torch", "BENCH_FULL.json")
-# The real-text stages' corpus, where bench.py reads it: the upstream memex
-# project's demo document, in its checkout beside this repository.
-SOTU_PATH = os.path.join(os.path.dirname(ROOT), "reference", "example_docs",
+# The real-text stages' corpus: the upstream memex project's demo document,
+# read inside this checkout, where it goes once it is committed (bench.py
+# reads an absolute path outside the repository).
+SOTU_PATH = os.path.join(ROOT, "reference", "example_docs",
                          "state_of_the_union_2023.txt")
 
 N = 1_048_576

@@ -6,7 +6,7 @@ unpack, then `_exact_flat_rerank` from coarse + residual codes. The
 script's two hypotheses for the loss: slot shadowing (fewer rows a slot
 at banks 16) and the deferred unpack's bf16 rounding (shift is exact).
 
-    python -m memex_tpu_torch.benchmarks.int4_bank_sweep [--device cuda|cpu] [--n ROWS]
+    python -m memex_tpu_torch.benchmarks.int4_bank_sweep [--device cuda|cpu]
 
 Prints one JSON row a variant (variant, qps, p50_batch_ms, recall_at_10,
 compile_s), then {"sweep": rows}.

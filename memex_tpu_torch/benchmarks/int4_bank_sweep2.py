@@ -7,7 +7,7 @@ same rows lost at every S would mean a rank-10/11 gap below every
 format's resolution, not slot pressure; the oracle's smallest and median
 gap are printed first.
 
-    python -m memex_tpu_torch.benchmarks.int4_bank_sweep2 [--device cuda|cpu] [--n ROWS]
+    python -m memex_tpu_torch.benchmarks.int4_bank_sweep2 [--device cuda|cpu]
 
 Prints {"min_boundary_gap", "median_boundary_gap"}, one {"variant",
 "recall", "misses"} a variant, then {"common_int8q_b4_int4_b16",

@@ -5,7 +5,7 @@ for int4+refine (K4, deferred unpack, S = 2048, keep2) and int8q+refine
 codes and `k_ret` kept for the final top 10. The script asked whether
 deeper reranks lift int4+refine's recall to int8q's at >= 0.99.
 
-    python -m memex_tpu_torch.benchmarks.int4_refine_sweep [--device cuda|cpu] [--n ROWS]
+    python -m memex_tpu_torch.benchmarks.int4_refine_sweep [--device cuda|cpu]
 
 Prints one JSON row a variant (variant, qps, p50_batch_ms, recall_at_10),
 then {"sweep": rows}.

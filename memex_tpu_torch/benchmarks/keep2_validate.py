@@ -5,7 +5,7 @@ int4_refine with K4 (deferred unpack, S = 1024 and 2048). The script's
 expectation: the few oracle rows the refine tiers lose are two-winner slot
 collisions, so keep2 recovers them at a small cost in fold time.
 
-    python -m memex_tpu_torch.benchmarks.keep2_validate [--device cuda|cpu] [--n ROWS]
+    python -m memex_tpu_torch.benchmarks.keep2_validate [--device cuda|cpu]
 
 Prints one JSON row a variant: variant, qps, p50_batch_ms, recall_at_10,
 compile_s (flat_sweep.py says how they are measured).

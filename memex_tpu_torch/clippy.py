@@ -125,9 +125,11 @@ def llm_answer(host: str, prompt: str) -> str:
 
 class LocalAnswerer:
     """The port's local LLM, loaded on first use and kept for the process,
-    answering with its tokens printed as they stream. `last` holds the
-    latest answer's first_token_ms, total_ms and pieces (the streamed
-    token texts)."""
+    answering with its text printed as it streams. `last` holds the latest
+    answer's first_token_ms (the first generated id on the host),
+    first_piece_ms (the first decodable text printed), total_ms, tokens
+    (ids generated) and pieces (the streamed texts: a piece waits while
+    its ids end inside a multi-byte character)."""
 
     def __init__(self, cfg_path: str, device: str):
         self.cfg_path, self.device = cfg_path, device
@@ -150,13 +152,16 @@ class LocalAnswerer:
             if not first:
                 first.append(time.perf_counter() - t0)
             pieces.append(piece)
-            print(piece, end="", flush=True)  # live, token by token
+            print(piece, end="", flush=True)  # live, as each piece decodes
 
         text = llm.chat_completion(llm.default_model, [ChatMessage(ChatRole.User, prompt)],
                                    on_token=emit)
         total = time.perf_counter() - t0
-        self.last = {"first_token_ms": first[0] * 1e3 if first else None,
-                     "total_ms": total * 1e3, "pieces": pieces}
+        first_id = llm.last_stream["first_id_at"]
+        self.last = {"first_token_ms": None if first_id is None else (first_id - t0) * 1e3,
+                     "first_piece_ms": first[0] * 1e3 if first else None,
+                     "total_ms": total * 1e3, "tokens": llm.last_stream["ids"],
+                     "pieces": pieces}
         print(f"\n[predict time: {total * 1e3:.0f}ms]", file=sys.stderr)
         return text
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 import tomllib
 
 import torch
@@ -116,6 +117,9 @@ class LocalLLM:
         self._model_name = model_name
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.max_tokens = cfg.max_context - RESPONSE_BUDGET - PROMPT_OVERHEAD
+        # The last stream's ids and when its first id reached the host
+        # (time.perf_counter()), for a caller timing its first token.
+        self.last_stream = {"ids": 0, "first_id_at": None}
 
     # -- construction ----------------------------------------------------------
 
@@ -257,6 +261,7 @@ class LocalLLM:
         eos = self.tokenizer.eos_id
         carry = prefill(self.cfg, self.params, padded, n_ids, self.sampler)
         out: list[int] = []
+        self.last_stream = {"ids": 0, "first_id_at": None}
         # Incremental detokenization over a bounded tail window (the
         # HF/vLLM detokenize_incrementally scheme): decoding the full
         # sequence per token is O(n^2) tokenizer work. `prefix_off`
@@ -288,6 +293,8 @@ class LocalLLM:
                     done = True
                     break
                 out.append(int(t))
+                if len(out) == 1:
+                    self.last_stream["first_id_at"] = time.perf_counter()
                 prefix_text = self.tokenizer.decode(out[prefix_off:read_off])
                 new_text = self.tokenizer.decode(out[prefix_off:])
                 if (not new_text.endswith("\ufffd")
@@ -303,6 +310,7 @@ class LocalLLM:
         tail = self.tokenizer.decode(out[prefix_off:])
         if len(tail) > len(prefix_text):
             on_token(tail[len(prefix_text):])
+        self.last_stream["ids"] = len(out)
         return out
 
     def segment_text(self, text: str) -> tuple[list[str], str]:

@@ -218,7 +218,9 @@ def test_local_llm_streams_memex_tpus_greedy_answer(live_server, tmp_path):
         padded, n, _ = local._llm.encode_prompt([ChatMessage(ChatRole.User, mine["prompt"])],
                                                 None)
         _greedy_flip_is_a_tie(jllm, padded[0, :n].tolist(), b, split, a[split])
-    assert local.last["first_token_ms"] <= local.last["total_ms"]
+    assert local.last["tokens"] == len(mine["ids"])
+    assert (local.last["first_token_ms"] <= local.last["first_piece_ms"]
+            <= local.last["total_ms"])
 
     # The loaded model serves the next command; qq streams the same way.
     model = local._llm

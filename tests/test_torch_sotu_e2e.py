@@ -3,8 +3,8 @@ the port's API path (tokenizer, windower, the tiny MiniLM of
 tests/test_torch_engine.py, the int8 store), top-3 search, the int8 store
 against the HNSW store on the same embeddings, and the window round trip.
 
-Each runs on the upstream demo document where memex_tpu's read it (skipped
-when it is absent, as memex_tpu's are) and on SURVEY.md, real English prose
+Each runs on the upstream demo document at the port's SOTU_PATH, inside the
+checkout (skipped when it is absent, as memex_tpu's are), and on SURVEY.md, real English prose
 in the repository, each with probe words its windows must hold.
 """
 
