@@ -5,6 +5,14 @@ Reference: run_scheduler polls every 100ms with max 5 active jobs
 wraps execution with timing + mark_done/mark_failed (:249-273); retries
 requeue up to MAX_RETRIES then park as Failed (db/queue.rs:114-130).
 
+The scheduler waits in one of two ways when it cannot claim. With every
+slot busy it blocks on a condition that a finishing task signals, so a
+queued backlog is claimed the moment a slot frees (`worker.slot_wakes`
+counts those wakes); the wait times out after `poll_interval`, which keeps
+the reap on schedule. With a slot free and the queue empty it sleeps
+`poll_interval`, as the reference polls: tasks arrive over SQL (from the
+API or other worker processes), which no event in this process sees.
+
 Thread-pool execution replaces tokio task spawning; the claim itself is an
 atomic UPDATE..RETURNING so multiple worker processes can share one queue
 (the reference's only multi-process mechanism, SURVEY.md §1).
@@ -39,6 +47,7 @@ class Worker:
         self._active = 0
         self._freed: deque[float] = deque()  # when each free slot last freed (FIFO)
         self._lock = threading.Lock()
+        self._slot_freed = threading.Condition(self._lock)
         self._shutdown = threading.Event()
         self._pool = ThreadPoolExecutor(max_workers=max_active, thread_name_prefix="memex-worker")
         self._last_reap = 0.0
@@ -75,6 +84,7 @@ class Worker:
             with self._lock:
                 self._active -= 1
                 self._freed.append(time.perf_counter())
+                self._slot_freed.notify()
 
     # -- scheduler -------------------------------------------------------------
 
@@ -118,9 +128,27 @@ class Worker:
         logger.info("worker started (max_active=%d, poll=%.0fms)",
                     self.max_active, self.poll_interval * 1000)
         while not self._shutdown.is_set():
-            claimed = self.poll_once()
-            if not claimed:
+            full = self._wait_while_full()
+            if self._shutdown.is_set():
+                break
+            if not self.poll_once() and not full:
+                # A slot was free and the queue empty: poll for new tasks.
                 self._shutdown.wait(self.poll_interval)
+
+    def _wait_while_full(self) -> bool:
+        """With every slot busy, wait until a task frees one, shutdown()
+        is called or `poll_interval` passes (so poll_once's reap keeps
+        its schedule); returns whether every slot is still busy. Only this
+        thread fills slots, so a slot seen free stays free for the claim."""
+        with self._lock:
+            if self._active < self.max_active:
+                return False
+            freed = self._slot_freed.wait_for(
+                lambda: self._active < self.max_active or self._shutdown.is_set(),
+                self.poll_interval)
+        if freed and not self._shutdown.is_set():
+            METRICS.inc("worker.slot_wakes")
+        return not freed
 
     def start_background(self) -> threading.Thread:
         thread = threading.Thread(target=self.run, name="memex-scheduler", daemon=True)
@@ -129,6 +157,8 @@ class Worker:
 
     def shutdown(self, wait: bool = True) -> None:
         self._shutdown.set()
+        with self._lock:
+            self._slot_freed.notify_all()
         self._pool.shutdown(wait=wait)
         try:
             self.rt.checkpoint_all()  # rate-limited ingest ckpts flush here
