@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...metrics import METRICS
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -329,12 +331,18 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return _apply_rope(x, cos, sin)
 
 
-def init_cache(cfg, batch: int = 1, device="cuda") -> dict:
+def _kv_cache(cfg, batch: int = 1, device="cuda") -> dict:
     shape = (cfg.num_layers, batch, cfg.max_context, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
     }
+
+
+def init_cache(cfg, batch: int = 1, device="cuda") -> dict:
+    """The family's cache: [L, B, max_context, n_kv, hd] bf16 K and V for
+    Llama and GPT-J, the latent cache for DeepSeek-V2."""
+    return _family(cfg)[1](cfg, batch=batch, device=device)
 
 
 def cache_slots(cache_len, T: int, C: int, device) -> torch.Tensor:
@@ -495,14 +503,38 @@ def sample_token(logits: torch.Tensor, recent: torch.Tensor, sc: SamplerConfig,
 # ---------------------------------------------------------------------------
 
 
-def model_forward(cfg, params: dict, tokens, positions, cache, cache_len):
-    """Family dispatch: the generation machinery below drives any decoder
-    exposing the (logits, cache) contract (Llama here, GPT-J in gptj.py)."""
-    if getattr(cfg, "model_family", "llama") == "gptj":
+def _family(cfg):
+    """(forward, init_cache, whether forward takes `logits_at`) of the
+    config's family: Llama here, GPT-J in gptj.py, DeepSeek-V2 in
+    deepseek_v2.py."""
+    name = getattr(cfg, "model_family", "llama")
+    if name == "gptj":
         from .gptj import forward as gptj_forward
 
-        return gptj_forward(cfg, params, tokens, positions, cache, cache_len)
-    return forward(cfg, params, tokens, positions, cache, cache_len)
+        return gptj_forward, _kv_cache, False
+    if name == "deepseek_v2":
+        from . import deepseek_v2
+
+        return deepseek_v2.forward, deepseek_v2.init_cache, True
+    return forward, _kv_cache, False
+
+
+def model_forward(cfg, params: dict, tokens, positions, cache, cache_len,
+                  logits_at: int | torch.Tensor | None = None):
+    """Family dispatch: the generation machinery below drives any decoder
+    exposing the (logits, cache) contract. With `logits_at`, the logits
+    of that row only ([B, 1, V]), or of a 1-D tensor of R rows ([B, R, V]):
+    DeepSeek-V2 computes the head there alone, the others slice their full
+    logits."""
+    fwd, _, head_at = _family(cfg)
+    if head_at:
+        return fwd(cfg, params, tokens, positions, cache, cache_len, logits_at=logits_at)
+    logits, cache = fwd(cfg, params, tokens, positions, cache, cache_len)
+    if isinstance(logits_at, int):
+        logits = logits[:, logits_at:logits_at + 1]
+    elif logits_at is not None:
+        logits = logits[:, logits_at]
+    return logits, cache
 
 
 def _decode_step(cfg, params: dict, sc: SamplerConfig, eos_id: int, gen: torch.Generator):
@@ -531,10 +563,11 @@ def prefill(cfg, params: dict, prompt: torch.Tensor, prompt_len: int,
     device = prompt.device
     cache = init_cache(cfg, batch=B, device=device)
     positions = torch.arange(P, device=device)[None, :]
-    logits, cache = model_forward(cfg, params, prompt, positions, cache, 0)
     # logits at the last real prompt token (an empty prompt reads the
     # last position, as memex_tpu's take_along_axis wraps -1)
-    last = logits[0, prompt_len - 1]
+    logits, cache = model_forward(cfg, params, prompt, positions, cache, 0,
+                                  logits_at=(prompt_len - 1) % P)
+    last = logits[0, 0]
     W = sc.repetition_window
     # seed recent with the tail of the prompt
     idx = torch.arange(W, device=device) + (prompt_len - W)
@@ -563,7 +596,14 @@ def generate(cfg, params: dict, prompt: torch.Tensor, prompt_len: int,
              sc: SamplerConfig, max_new: int, gen: torch.Generator, eos_id: int = 2):
     """prompt [1, P] padded; returns (tokens [max_new], n_valid), both on
     the device. Early stop via the done mask: the steps run to max_new and
-    n_valid counts the tokens before the first eos step."""
-    carry = prefill(cfg, params, prompt, prompt_len, sc)
-    _, tokens, was_done = decode_chunk(cfg, params, carry, sc, max_new, gen, eos_id)
+    n_valid counts the tokens before the first eos step. Spans
+    `llm.prefill` and `llm.decode` (host), and inside a
+    `METRICS.device_timing()` scope `llm.prefill_dev` and `llm.decode_dev`
+    (device) with `llm.decode_tokens` counted beside the latter."""
+    device = prompt.device
+    with METRICS.span("llm.prefill"), METRICS.device_span("llm.prefill_dev", device):
+        carry = prefill(cfg, params, prompt, prompt_len, sc)
+    with METRICS.span("llm.decode"), METRICS.device_span(
+            "llm.decode_dev", device, {"llm.decode_tokens": max_new}):
+        _, tokens, was_done = decode_chunk(cfg, params, carry, sc, max_new, gen, eos_id)
     return tokens, torch.sum(~was_done)

@@ -27,6 +27,7 @@ import tomllib
 import torch
 
 from ...log import get_logger
+from ...metrics import METRICS
 from ...text.segment import count_tokens
 from ..base import ChatMessage, budget_segment, budget_truncate
 from .model import (
@@ -45,6 +46,19 @@ logger = get_logger(__name__)
 RESPONSE_BUDGET = 512   # reference MAX_TOKENS parts (local/mod.rs:19)
 PROMPT_OVERHEAD = 100
 _PROMPT_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+
+
+def prompt_buckets(max_context: int) -> tuple[int, ...]:
+    """The padded prompt lengths below max_context - RESPONSE_BUDGET (the
+    longest prompt kept, which is the last bucket): _PROMPT_BUCKETS, then
+    powers of two."""
+    top = max_context - RESPONSE_BUDGET
+    out = [b for b in _PROMPT_BUCKETS if b < max_context]
+    b = 2 * _PROMPT_BUCKETS[-1]
+    while b < top:
+        out.append(b)
+        b *= 2
+    return tuple(out)
 
 
 class ByteTokenizer:
@@ -120,20 +134,33 @@ class LocalLLM:
         # The last stream's ids and when its first id reached the host
         # (time.perf_counter()), for a caller timing its first token.
         self.last_stream = {"ids": 0, "first_id_at": None}
+        # The last completion's prompt length and emitted ids, either path.
+        self.last_completion = {"prompt_ids": 0, "ids": []}
 
     # -- construction ----------------------------------------------------------
 
     @classmethod
-    def from_config(cls, toml_path: str, device="cuda") -> "LocalLLM":
+    def from_config(cls, toml_path: str, device="cuda", weights=None) -> "LocalLLM":
         """TOML config (reference schema.rs:20-34 shape):
-            [model]   path = "<hf dir>" | "tiny"   name = "..."
+            [model]   path = "<hf dir>" | "tiny" | "tiny-gptj"   name = "..."
+                      type = "llama" | "gptj" | "deepseek_v2" (else config.json's
+                             model_type, else llama)
                       param_dtype = "bfloat16" (default) | "float32" | "int8"
+            deepseek_v2 only:
+                      max_context = <positions> (default: min(published, 4096))
             [sampler] temperature / top_k / top_p / repetition_penalty
+
+        `weights` (deepseek_v2 only): the checkpoint's tensors already in
+        memory, anything whose get(name) gives one by its HF name, loaded
+        in place of the dir's safetensors (the dir then needs only
+        config.json).
 
         param_dtype is the weight storage dtype: decode reads every weight
         once a token, so bf16 halves its bytes against float32 and int8
-        halves them again (per-out-channel scales). A missing model dir
-        falls back to the tiny model, as memex_tpu does.
+        halves them again (per-out-channel scales; Llama and GPT-J only).
+        A family outside the table raises ValueError. A missing model dir
+        falls back to the tiny model, as memex_tpu does, except for
+        deepseek_v2, which raises.
         """
         with open(toml_path, "rb") as fh:
             cfg_data = tomllib.load(fh)
@@ -145,27 +172,29 @@ class LocalLLM:
             top_p=float(sam.get("top_p", 0.95)),
             repetition_penalty=float(sam.get("repetition_penalty", 1.1)),
         )
-        path = model.get("path", "tiny")
-        name = model.get("name", os.path.basename(str(path)) or "local")
-        family = model.get("type", "llama").lower()  # reference schema.rs:20-34
-        if path in ("tiny", "tiny-gptj") or not os.path.isdir(path):
+        path = str(model.get("path", "tiny"))
+        name = model.get("name", os.path.basename(path) or "local")
+        have_dir = path not in ("tiny", "tiny-gptj") and os.path.isdir(path)
+        family = model.get("type")
+        if family is None and have_dir:
+            with open(os.path.join(path, "config.json"), encoding="utf-8") as fh:
+                family = json.load(fh).get("model_type")
+        family = str(family or "llama").lower()  # reference schema.rs:20-34
+        if family not in _FAMILIES:
+            raise ValueError(f"unknown local LLM family {family!r} in {toml_path}; "
+                             f"known: {sorted(_FAMILIES)}")
+        if weights is not None and family != "deepseek_v2":
+            raise ValueError(f"weights= is for deepseek_v2, not {family!r}")
+        if not have_dir:
+            if family == "deepseek_v2":
+                raise ValueError(f"deepseek_v2 needs a model directory with config.json; "
+                                 f"{path!r} is none")
             if path not in ("tiny", "tiny-gptj"):
                 logger.warning("model dir %s missing; using tiny hermetic model", path)
             if family == "gptj" or path == "tiny-gptj":
                 return cls.tiny_gptj(sampler=sampler, model_name=name, device=device)
             return cls.tiny(sampler=sampler, model_name=name, device=device)
-        # Family from TOML, or sniffed from the checkpoint's config.json.
-        if family == "llama":
-            with open(os.path.join(path, "config.json"), encoding="utf-8") as fh:
-                if json.load(fh).get("model_type", "llama") == "gptj":
-                    family = "gptj"
-        if family == "gptj":
-            from .gptj import load_params as gptj_load
-
-            cfg, params = gptj_load(path, device=device)
-        else:
-            cfg, params = load_params(path, device=device)
-        params = convert_params(params, str(model.get("param_dtype", "bfloat16")))
+        cfg, params = _FAMILIES[family](path, model, device, weights)
         tokenizer = (
             HFTokenizer(path)
             if os.path.exists(os.path.join(path, "tokenizer.json"))
@@ -204,7 +233,7 @@ class LocalLLM:
         max_prompt = self.cfg.max_context - RESPONSE_BUDGET
         ids = ids[-max_prompt:]
         # bucket the prompt length to bound the shapes a forward sees
-        bucket = next((b for b in _PROMPT_BUCKETS if len(ids) <= b and b < self.cfg.max_context),
+        bucket = next((b for b in prompt_buckets(self.cfg.max_context) if len(ids) <= b),
                       max_prompt)
         padded = torch.zeros((1, bucket), dtype=torch.long)
         padded[0, : len(ids)] = torch.tensor(ids, dtype=torch.long)
@@ -216,20 +245,24 @@ class LocalLLM:
     def chat_completion(self, model: str, messages: list[ChatMessage],
                         on_token=None, max_new: int | None = None) -> str:
         padded, n_ids, max_new = self.encode_prompt(messages, max_new)
-        if on_token is None:
-            # Batch path: the whole generation, then one host read.
-            tokens, n_valid = generate(
-                self.cfg, self.params, padded, n_ids, self.sampler, max_new, self._gen,
-                eos_id=self.tokenizer.eos_id,
-            )
-            host = torch.cat([tokens, n_valid.view(1)]).tolist()
-            out = host[: host[-1]]
-        else:
-            # Streaming path: STREAM_CHUNK tokens a call; the KV cache stays
-            # on the device, and on_token fires while generation continues
-            # (the reference streams token events the same way,
-            # local/mod.rs:101-126).
-            out = self._stream(padded, n_ids, max_new, on_token)
+        METRICS.inc("llm.prompt_tokens", n_ids)
+        with METRICS.device_timing() as timing:
+            if on_token is None:
+                # Batch path: the whole generation, then one host read.
+                tokens, n_valid = generate(
+                    self.cfg, self.params, padded, n_ids, self.sampler, max_new, self._gen,
+                    eos_id=self.tokenizer.eos_id,
+                )
+                host = torch.cat([tokens, n_valid.view(1)]).tolist()
+                out = host[: host[-1]]
+            else:
+                # Streaming path: STREAM_CHUNK tokens a call; the KV cache
+                # stays on the device, and on_token fires while generation
+                # continues (the reference streams token events the same
+                # way, local/mod.rs:101-126).
+                out = self._stream(padded, n_ids, max_new, on_token)
+        timing.count()  # after the read: the device has passed every span counted
+        self.last_completion = {"prompt_ids": n_ids, "ids": [int(t) for t in out]}
         return self.tokenizer.decode([int(t) for t in out])
 
     STREAM_CHUNK = 16  # steady-state tokens a call
@@ -244,10 +277,12 @@ class LocalLLM:
         behind an event, so waiting for this chunk does not wait for a
         chunk enqueued after it (`.cpu()` would wait for everything
         enqueued)."""
-        carry, toks, was_done = decode_chunk(
-            self.cfg, self.params, carry, self.sampler, chunk, self._gen,
-            eos_id=self.tokenizer.eos_id,
-        )
+        with METRICS.span("llm.decode"), METRICS.device_span(
+                "llm.decode_dev", self.device, {"llm.decode_tokens": chunk}):
+            carry, toks, was_done = decode_chunk(
+                self.cfg, self.params, carry, self.sampler, chunk, self._gen,
+                eos_id=self.tokenizer.eos_id,
+            )
         both = torch.stack([toks, was_done.to(toks.dtype)])
         if self.device.type != "cuda":
             return carry, both, None
@@ -259,7 +294,8 @@ class LocalLLM:
 
     def _stream(self, padded, n_ids, max_new, on_token) -> list[int]:
         eos = self.tokenizer.eos_id
-        carry = prefill(self.cfg, self.params, padded, n_ids, self.sampler)
+        with METRICS.span("llm.prefill"), METRICS.device_span("llm.prefill_dev", self.device):
+            carry = prefill(self.cfg, self.params, padded, n_ids, self.sampler)
         out: list[int] = []
         self.last_stream = {"ids": 0, "first_id_at": None}
         # Incremental detokenization over a bounded tail window (the
@@ -320,3 +356,36 @@ class LocalLLM:
 
     def truncate_text(self, text: str) -> tuple[str, str]:
         return budget_truncate(text, self.max_tokens), self._model_name
+
+
+# -- families ------------------------------------------------------------------
+
+
+def _load_llama(path: str, model: dict, device, weights=None) -> tuple:
+    cfg, params = load_params(path, device=device)
+    return cfg, convert_params(params, str(model.get("param_dtype", "bfloat16")))
+
+
+def _load_gptj(path: str, model: dict, device, weights=None) -> tuple:
+    from .gptj import load_params as gptj_load
+
+    cfg, params = gptj_load(path, device=device)
+    return cfg, convert_params(params, str(model.get("param_dtype", "bfloat16")))
+
+
+def _load_deepseek_v2(path: str, model: dict, device, weights=None) -> tuple:
+    """Weights land in param_dtype as they are read (the float32
+    copy of a 15.7B model would not fit on the card); the compute dtype
+    follows it."""
+    from . import deepseek_v2 as ds
+
+    dtype = str(model.get("param_dtype", "bfloat16"))
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"deepseek_v2: param_dtype {dtype!r} is not supported "
+                         "(bfloat16 or float32)")
+    cfg = ds.DeepseekV2Config.from_model_dir(path, model.get("max_context"), dtype)
+    return ds.load_params(path, cfg, device=device, dtype=dtype, tensors=weights)
+
+
+# model family -> (model dir, TOML [model] table, device, weights) -> (cfg, params)
+_FAMILIES = {"llama": _load_llama, "gptj": _load_gptj, "deepseek_v2": _load_deepseek_v2}

@@ -11,6 +11,10 @@ The reference's observability is logs + a per-response `time` field only
     thread and ends on another (or across an `await`): counters only;
   - `add_device(name, value)`: a counter kept on the device (no host
     read where it is added), read by `snapshot()`;
+  - `device_timing()`: a scope in which `device_span(name, device)`
+    blocks record CUDA events (the host clock on the CPU); `count()`,
+    called after the caller's own host read, adds each finished block's
+    device seconds to `<name>_us` / `<name>_n` with no wait of its own;
   - `profile_trace()`: with MEMEX_PROFILE=<dir>, one torch.profiler trace
     of every thread, `<dir>/memex.json`, over PROFILE_WINDOW_S seconds from
     the first batch any batcher collects.
@@ -65,8 +69,64 @@ class _Span:
         return False
 
 
+class DeviceTiming:
+    """The device spans of one thread's scope (`Metrics.device_timing()`):
+    CUDA event pairs on a card, host clock readings on the CPU, where every
+    operation has ended when it returns. Counted by `count()` once the
+    caller has read a result that the spans' work precedes."""
+
+    def __init__(self, metrics: "Metrics"):
+        self._metrics = metrics
+        self._spans: list = []  # [name, start, end, counters]
+        self._outer = None
+
+    def __enter__(self):
+        self._outer = getattr(self._metrics._tls, "timing", None)
+        self._metrics._tls.timing = self
+        return self
+
+    def __exit__(self, *exc):
+        self._metrics._tls.timing = self._outer
+        return False
+
+    def mark(self, device: torch.device):
+        if device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    @contextlib.contextmanager
+    def span(self, name: str, device: torch.device, counters: dict | None = None):
+        entry = [name, self.mark(device), None, counters or {}]
+        try:
+            yield
+        finally:
+            entry[2] = self.mark(device)
+            self._spans.append(entry)
+
+    def count(self) -> None:
+        """Add every span whose end the device has passed (an event not yet
+        reached, as a speculative chunk nobody read, is dropped with its
+        counters) and forget them all. Reads no value back beyond what
+        the events already hold."""
+        m = self._metrics
+        for name, start, end, counters in self._spans:
+            if isinstance(end, float):
+                secs = end - start
+            elif end.query():
+                secs = start.elapsed_time(end) / 1e3
+            else:
+                continue
+            m.add_span(name, secs)
+            for k, v in counters.items():
+                m.inc(k, v)
+        self._spans.clear()
+
+
 class Metrics:
     def __init__(self):
+        self._tls = threading.local()
         self._lock = threading.Lock()
         self._counters: dict[str, int] = defaultdict(int)
         self._timings: dict[str, list[float]] = defaultdict(list)
@@ -92,6 +152,21 @@ class Metrics:
         with self._lock:
             self._counters[k_us] += us
             self._counters[k_n] += n
+
+    def device_timing(self) -> DeviceTiming:
+        """A scope (`with METRICS.device_timing() as t:`) whose
+        `device_span` blocks on this thread are timed on the device; call
+        `t.count()` after the host read that follows them."""
+        return DeviceTiming(self)
+
+    def device_span(self, name: str, device: torch.device, counters: dict | None = None):
+        """A block timed on `device` as `<name>_us` / `<name>_n`, with
+        `counters` added beside it, inside this thread's `device_timing()`
+        scope; elsewhere a no-op."""
+        timing = getattr(self._tls, "timing", None)
+        if timing is None:
+            return contextlib.nullcontext()
+        return timing.span(name, torch.device(device), counters)
 
     def _span_keys(self, name: str) -> tuple[str, str]:
         return self._keys.setdefault(name, (name + "_us", name + "_n"))
