@@ -1889,12 +1889,10 @@ def phase6_model(label: str, seed: int, name: str, cfg, dtypes, device) -> tuple
 
     import torch
 
-    from memex_tpu_torch.llm.local.gptj import init_params as gptj_init
-    from memex_tpu_torch.llm.local.model import convert_params, init_params
+    from memex_tpu_torch.llm.local.model import convert_params, family_of
 
     t0 = time.perf_counter()
-    family = getattr(cfg, "model_family", "llama")
-    params32 = (gptj_init if family == "gptj" else init_params)(cfg, seed=seed, device=device)
+    params32 = family_of(cfg).init_params(cfg, seed=seed, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     prompt = torch.randint(3, cfg.vocab_size, (1, LLM_P), generator=gen, device=device)
     torch.cuda.synchronize()

@@ -60,6 +60,21 @@ def seq_bucket(n: int, max_seq_length: int) -> int:
     return max_seq_length
 
 
+def pad_rows(rows: list[list[int]], length: int, pad_id: int,
+             batch: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Rows of token ids -> (ids, mask) [batch, length] int32 arrays, ids
+    padded with pad_id. Rows past len(rows) are padding, with mask[:, 0] = 1
+    so the mean pooling never divides 0 by 0. batch defaults to len(rows)."""
+    batch = len(rows) if batch is None else batch
+    ids = np.full((batch, length), pad_id, dtype=np.int32)
+    mask = np.zeros((batch, length), dtype=np.int32)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = r
+        mask[i, : len(r)] = 1
+    mask[len(rows):, 0] = 1
+    return ids, mask
+
+
 def _batch_bucket(n: int, max_batch: int) -> int:
     b = 8
     while b < n and b < max_batch:
@@ -254,13 +269,8 @@ class EmbeddingEngine:
         """encode() over several documents, all their windows in one stream."""
         with METRICS.span("embed.tokenize"):
             segmented = [self._window_doc(t) for t in texts]
-            all_windows = [w for _, ws in segmented for w in ws]
-            L = self.max_seq_length
-            ids = np.full((len(all_windows), L), self.tokenizer.pad_id, dtype=np.int32)
-            mask = np.zeros((len(all_windows), L), dtype=np.int32)
-            for i, w in enumerate(all_windows):
-                ids[i, : len(w)] = w
-                mask[i, : len(w)] = 1
+            ids, mask = pad_rows([w for _, ws in segmented for w in ws], self.max_seq_length,
+                                 self.tokenizer.pad_id)
         with self._lock:
             vecs = self._encode_padded(ids, mask)
         out = []
@@ -273,11 +283,8 @@ class EmbeddingEngine:
     def encode_single(self, text: str) -> np.ndarray:
         """Truncate-and-embed one query, at the smallest seq bucket that fits."""
         ids_list = self.tokenizer.encode(text, add_special_tokens=True)[: self.max_seq_length]
-        L = seq_bucket(len(ids_list), self.max_seq_length)
-        ids = np.full((1, L), self.tokenizer.pad_id, dtype=np.int32)
-        mask = np.zeros((1, L), dtype=np.int32)
-        ids[0, : len(ids_list)] = ids_list
-        mask[0, : len(ids_list)] = 1
+        ids, mask = pad_rows([ids_list], seq_bucket(len(ids_list), self.max_seq_length),
+                             self.tokenizer.pad_id)
         with self._lock:
             return self._encode_padded(ids, mask)[0]
 

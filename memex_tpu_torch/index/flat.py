@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -91,44 +92,37 @@ def _put(dst: torch.Tensor, lo: int, rows) -> None:
     dst[lo : lo + rows.shape[0]] = rows.to(dst.device, dst.dtype)
 
 
-def _search_masked_fused(buf, alive, count: int, queries, k: int, kk: int = 128,
-                         exact: bool = False, keep2: bool = False):
-    """Fused scan into a kk-wide candidate list, then its top-k. `alive`
-    (None when the index has no deletes) masks tombstones inside the
-    scan, so dead rows never claim candidate slots. keep2 removes mod-S
-    slot-collision losses; exact mode sets it so an exact scan is exact
-    end to end."""
-    vals, idx = fused_score_topk(buf, queries, kk, count=count, alive=alive,
-                                 exact=exact, keep2=keep2)
-    svals, order = exact_topk(vals, k)
-    return svals, torch.gather(idx, 1, order.long())
-
-
-def _search_masked_fused_int8(buf, scales, alive, count: int, queries, k: int,
-                              kk: int = 128, block_n: int = 1024, qquant: bool = True,
-                              keep2: bool = False):
-    """int8 fused path, tombstones masked in the scan. qquant quantizes the
-    queries too (K2, s8 x s8); otherwise bf16 queries (K3, no keep2). The
-    bank widths are memex_tpu's: 4 x 128 slots for K2, up to 8 x 128 (from
-    block_n) for K3."""
-    if qquant:
+def _fused_scan(dtype: str, qquant: bool, buf, scales, buf8, alive, count: int, queries,
+                k: int, kk: int, block_n: int, *, deferred: bool = False, exact: bool = False,
+                keep2: bool = False, banks4: int = 8, banks: int | None = None,
+                select: bool = True):
+    """One fused scan, tombstones in `alive` (None: no deletes) masked
+    inside it, so dead rows never claim candidate slots. int4: K4, then
+    the exact int8 rerank of its top kk, to k. int8: K2 (qquant, s8 x s8)
+    or K3 (bf16 queries, no keep2); float32/bfloat16: K1 (exact: float32
+    inputs); each into a kk-wide candidate list and its top k (select=False
+    keeps the list as the bank gave it). keep2 removes mod-S
+    slot-collision losses. Bank widths are memex_tpu's, from block_n: K2 4
+    x 128 slots, K3 up to 8 x 128, K4 up to banks4 x 128, K1 8 x 128;
+    `banks` fixes K2's or K3's."""
+    if dtype == "int4":
+        return fused_score_topk_int4_rerank(
+            buf, scales, buf8, queries, k, count=count, alive=alive, rerank=kk,
+            banks=max(1, min(banks4, block_n // 128)), deferred=deferred, keep2=keep2)
+    if dtype == "int8" and qquant:
         vals, idx = fused_score_topk_int8q(buf, scales, queries, kk, count=count, alive=alive,
-                                           banks=max(1, min(4, block_n // 128)), keep2=keep2)
-    else:
+                                           banks=banks or max(1, min(4, block_n // 128)),
+                                           keep2=keep2)
+    elif dtype == "int8":
         vals, idx = fused_score_topk_int8(buf, scales, queries, kk, count=count, alive=alive,
-                                          banks=max(1, min(8, block_n // 128)))
+                                          banks=banks or max(1, min(8, block_n // 128)))
+    else:
+        vals, idx = fused_score_topk(buf, queries, kk, count=count, alive=alive, exact=exact,
+                                     keep2=keep2)
+    if not select:
+        return vals, idx
     svals, order = exact_topk(vals, k)
     return svals, torch.gather(idx, 1, order.long())
-
-
-def _search_masked_fused_int4(buf4, scales, buf8, alive, count: int, queries, k: int,
-                              block_n: int = 8192, rerank: int = 64, deferred: bool = False,
-                              banks: int = 8, keep2: bool = False):
-    """int4 coarse scan (K4) + exact int8 rerank. The bank is capped at
-    block_n // 128 banks, as memex_tpu caps it."""
-    return fused_score_topk_int4_rerank(
-        buf4, scales, buf8, queries, k, count=count, alive=alive, rerank=rerank,
-        banks=max(1, min(banks, block_n // 128)), deferred=deferred, keep2=keep2)
 
 
 def _exact_flat_rerank(buf, scales, queries, vals, idx, keep: int, rbuf=None,
@@ -157,35 +151,79 @@ def _search_rerank_fused(buf, scales, buf8, rbuf, rscales, alive, count: int, qu
     """Coarse fused scan for k_ret candidates, then the exact (or refine)
     rerank to k. memex_tpu composes both into one executable; here they
     are consecutive launches on one stream. `dtype` selects the scan."""
-    if dtype == "int4":
-        vals, idx = _search_masked_fused_int4(
-            buf, scales, buf8, alive, count, queries, k_ret, block_n=block_n, rerank=kk,
-            deferred=deferred, banks=min(banks4, max(1, block_n // 128)), keep2=keep2)
-        src = buf8
-    elif dtype == "int8":
-        vals, idx = _search_masked_fused_int8(
-            buf, scales, alive, count, queries, k_ret, kk=kk, block_n=block_n,
-            qquant=qquant, keep2=keep2 and qquant)
-        src = buf
-    else:
-        vals, idx = _search_masked_fused(buf, alive, count, queries, k_ret, kk=kk,
-                                         exact=exact, keep2=keep2)
-        src = buf
-    return _exact_flat_rerank(src, scales, queries, vals, idx, k, rbuf=rbuf,
-                              rbuf_scales=rscales)
+    vals, idx = _fused_scan(dtype, qquant, buf, scales, buf8, alive, count, queries, k_ret, kk,
+                            block_n, deferred=deferred, exact=exact, keep2=keep2, banks4=banks4)
+    return _exact_flat_rerank(buf8 if dtype == "int4" else buf, scales, queries, vals, idx, k,
+                              rbuf=rbuf, rbuf_scales=rscales)
 
 
-def _search_plain(buf, scales, alive, count: int, queries, k: int, exact: bool = False):
-    """Non-fused scan (memex_tpu's `_search_xla`) for any storage dtype: the
-    whole [Q, N] score matrix at the kernels' precision (bf16-rounded
-    inputs, or float32 when exact), times the row scales of a quantized
-    buffer, tombstones masked before an exact two-stage top-k, so it can
-    never fall short of live hits."""
-    scores = scores_f32(queries, buf.T, exact=exact)
-    if scales is not None:
-        scores = scores * scales[None, :]
-    scores = torch.where(alive[None, :] > 0, scores, torch.full_like(scores, -1e30))
-    return blockwise_topk(scores, k, count=count)
+class FlatRows(NamedTuple):
+    """One device's stored rows of a flat tier, as the scans read them."""
+
+    dtype: str
+    query_quantize: bool
+    count: int
+    buf: torch.Tensor
+    scales: torch.Tensor | None = None
+    buf8: torch.Tensor | None = None
+    rbuf: torch.Tensor | None = None
+    rbuf_scales: torch.Tensor | None = None
+
+
+def scan_rows(rows: FlatRows, q, k: int, *, alive, masked: bool, fused: bool, block_n: int,
+              kk: int, k_ret: int | None = None, exact: bool = False,
+              fixed_banks: bool = False, select: bool = True):
+    """The flat scan's kernel choice, for every tier and caller: [Q, D]
+    device queries -> device (vals, rows) [Q, k] of residual scores,
+    launched with no host sync. `fused` takes a fused scan (_fused_scan)
+    over the plain one. k_ret > k re-scores k_ret candidates in float32
+    (with the refine residual) and keeps k. kk is the K1-K3 candidate
+    list; int4 takes its own rerank depth and picks its unpack by the
+    batch size. The plain scan always masks `alive`, a fused scan only
+    when `masked`. fixed_banks and select=False are memex_tpu's sharded
+    search: K2 and K3 banks fixed at 4 and 8, and the candidates left
+    for the merge."""
+    k_ret = k if k_ret is None else k_ret
+    int4 = rows.dtype == "int4"
+    if not fused:
+        # memex_tpu's `_search_xla`: the whole [Q, N] score matrix at the
+        # kernels' precision (int4 from its int8 copy), times the row
+        # scales, tombstones masked before an exact two-stage top-k, so
+        # it never falls short of live hits.
+        src = rows.buf8 if int4 else rows.buf
+        scores = scores_f32(q, src.T, exact=exact)
+        if rows.scales is not None:
+            scores = scores * rows.scales[None, :]
+        scores = torch.where(alive[None, :] > 0, scores, torch.full_like(scores, -1e30))
+        vals, idx = blockwise_topk(scores, k_ret, count=rows.count)
+        if k_ret > k:
+            vals, idx = _exact_flat_rerank(src, rows.scales, q, vals, idx, k, rbuf=rows.rbuf,
+                                           rbuf_scales=rows.rbuf_scales)
+        return vals, idx
+    alive = alive if masked else None
+    deferred = _int4_deferred(q.shape[0])
+    if k_ret > k:
+        return _search_rerank_fused(
+            rows.buf, rows.scales, rows.buf8, rows.rbuf, rows.rbuf_scales, alive, rows.count,
+            q, k, k_ret, _int4_rerank_depth(k_ret) if int4 else kk, block_n,
+            rows.query_quantize, deferred, rows.dtype, exact)
+    return _fused_scan(rows.dtype, rows.query_quantize, rows.buf, rows.scales, rows.buf8, alive,
+                       rows.count, q, k, _int4_rerank_depth(k) if int4 else kk, block_n,
+                       deferred=deferred, exact=exact, keep2=exact,
+                       banks=(4 if rows.query_quantize else 8) if fixed_banks else None,
+                       select=select)
+
+
+def hits_from(vals: np.ndarray, rows: np.ndarray, ids, count: int,
+              off: np.ndarray | None = None) -> list[list[tuple[str, float]]]:
+    """Host (vals, rows) [Q, k] -> per query [(ids[row], score + off[q])],
+    without sentinel candidates (v <= -1e29) and rows at or past count."""
+    out = []
+    for qi, (v_row, r_row) in enumerate(zip(vals, rows)):
+        shift = float(off[qi]) if off is not None else 0.0
+        out.append([(ids[r], float(v) + shift) for v, r in zip(v_row, r_row)
+                    if not (v <= -1e29 or r >= count)])
+    return out
 
 
 class FlatIndex:
@@ -237,6 +275,7 @@ class FlatIndex:
         self.use_fused = self.device.type == "cuda" if use_fused is None else use_fused
         self.ids: list[str] = []
         self._id_to_row: dict[str, int] = {}
+        self._mean_dev: tuple[np.ndarray, torch.Tensor] | None = None  # see device_mean()
         self._buf_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                            "int8": torch.int8, "int4": torch.int8}[dtype]
         self._sh_dtype = np.int8 if dtype in _QUANTIZED else np.float32
@@ -512,84 +551,62 @@ class FlatIndex:
             return min(32768, self.capacity)
         return min(self.block_n, self.capacity)
 
-    def _plain(self, q, k_eff: int, k_ret: int, exact: bool):
-        """The plain scan (int4 scores from its int8 copy), then the rerank
-        when one is due."""
-        src = self.buf8 if self.dtype == "int4" else self.buf
-        vals, idx = _search_plain(src, self.scales, self.alive, self.count, q, k_ret,
-                                  exact=exact)
-        if self.rerank and k_ret > k_eff:
-            vals, idx = _exact_flat_rerank(src, self.scales, q, vals, idx, k_eff,
-                                           rbuf=self.rbuf, rbuf_scales=self.rbuf_scales)
-        return vals, idx
+    def _depths(self, k: int) -> tuple[int, int]:
+        """(k_eff, k_ret): the hits a search returns, and the candidates it
+        retrieves for the rerank (k_eff when there is none)."""
+        k_eff = min(k, self.count)
+        return k_eff, min(max(k_eff, self.rerank), self.count) if self.rerank else k_eff
+
+    def device_mean(self) -> torch.Tensor | None:
+        """The pinned centring mean on the device, None while it is zero or
+        not pinned; one copy per pinned mean."""
+        mean = self.mean
+        if mean is None or not mean.any():
+            return None
+        if self._mean_dev is None or self._mean_dev[0] is not mean:
+            self._mean_dev = (mean, torch.from_numpy(mean).to(self.device))
+        return self._mean_dev[1]
+
+    def scan(self, q: torch.Tensor, k: int, *, fused: bool | None = None,
+             mask_alive: bool = False, candidates: int | None = None):
+        """scan_rows over this index: device (vals, rows) [Q, min(k, count)]
+        of residual scores (q . mean not added). fused=False takes the
+        plain scan. memex_tpu's serve path sets mask_alive (alive rides
+        into a fused scan with no row dead) and candidates (the list of a
+        fused scan without rerank; default min(4k, 128))."""
+        k_eff, k_ret = self._depths(k)
+        kk = min(max(4 * k_eff, k_ret), 128)
+        if candidates is not None and k_ret == k_eff:
+            kk = candidates
+        rows = FlatRows(self.dtype, self.query_quantize, self.count, self.buf, self.scales,
+                        self.buf8, self.rbuf, self.rbuf_scales)
+        # The fused scan's candidate list is at most 128 wide; wider
+        # requests take the plain path.
+        return scan_rows(rows, q, k_eff, alive=self.alive, masked=mask_alive or bool(self.dead),
+                         fused=(self.use_fused if fused is None else fused) and k_ret <= 128,
+                         block_n=self.scan_block_n(), kk=kk, k_ret=k_ret,
+                         exact=self.scan_precision == "highest")
 
     def search(self, queries: np.ndarray, k: int) -> list[list[tuple[str, float]]]:
         """[Q, dim] unit queries -> per-query [(id, cosine_similarity)]."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         if self.count == 0:
             return [[] for _ in range(queries.shape[0])]
-        k_eff = min(k, self.count)
-        # Rerank over-fetch: retrieve a wider candidate set, re-score it.
-        k_ret = min(max(k_eff, self.rerank), self.count) if self.rerank else k_eff
-        # The fused scan's candidate list is at most 128 wide; wider
-        # requests take the plain path. With tombstones a shortfall falls
-        # back to the plain path below.
-        use_fused = self.use_fused and k_ret <= 128
-        kk = min(max(4 * k_eff, k_ret), 128)
-        # alive rides into the scan only when tombstones exist.
-        alive_arg = self.alive if self.dead else None
-        exact = self.scan_precision == "highest"
         q = torch.from_numpy(queries).to(self.device)
-        bn = self.scan_block_n()
-        if use_fused and self.rerank and k_ret > k_eff:
-            if self.dtype == "int4":
-                kk_arg, deferred = _int4_rerank_depth(k_ret), _int4_deferred(q.shape[0])
-            else:
-                kk_arg, deferred = kk, False
-            vals, idx = _search_rerank_fused(
-                self.buf, self.scales, self.buf8, self.rbuf, self.rbuf_scales, alive_arg,
-                self.count, q, k_eff, k_ret, kk_arg, bn, self.query_quantize, deferred,
-                self.dtype, exact)
-        elif use_fused and self.dtype == "int4":
-            vals, idx = _search_masked_fused_int4(
-                self.buf, self.scales, self.buf8, alive_arg, self.count, q, k_ret,
-                block_n=bn, rerank=_int4_rerank_depth(k_ret),
-                deferred=_int4_deferred(q.shape[0]))
-        elif use_fused and self.dtype == "int8":
-            vals, idx = _search_masked_fused_int8(
-                self.buf, self.scales, alive_arg, self.count, q, k_ret, kk=kk, block_n=bn,
-                qquant=self.query_quantize)
-        elif use_fused:
-            vals, idx = _search_masked_fused(self.buf, alive_arg, self.count, q, k_ret,
-                                             kk=kk, exact=exact, keep2=exact)
-        else:
-            vals, idx = self._plain(q, k_eff, k_ret, exact)
         # Centred rows: restore true cosines with the query-constant q.mean.
         off = None
         if self.mean is not None and self.mean.any():
             off = queries @ self.mean
-        out = self._hits_from(*fetch(vals, idx), queries.shape[0], off)
-        if use_fused and self.dead:
+        out = hits_from(*fetch(*self.scan(q, k)), self.ids, self.count, off)
+        k_eff, k_ret = self._depths(k)
+        if self.use_fused and k_ret <= 128 and self.dead:
             # Shortfall: tombstones crowded the candidate bank. Re-run on
             # the plain path, which masks dead rows before its top-k.
             expect = min(k_eff, self.count - self.dead)
             if any(len(h) < expect for h in out):
                 logger.info("fused search shortfall under deletes; exact rerun")
-                vals, idx = self._plain(q, k_eff, k_ret, exact)
-                out = self._hits_from(*fetch(vals, idx), queries.shape[0], off)
-        return out
-
-    def _hits_from(self, vals, idx, q_n: int,
-                   off: np.ndarray | None = None) -> list[list[tuple[str, float]]]:
-        out = []
-        for qi in range(q_n):
-            hits = []
-            for v, r in zip(vals[qi], idx[qi]):
-                if v <= -1e29 or r >= self.count:
-                    continue
-                hits.append((self.ids[r],
-                             float(v) + (float(off[qi]) if off is not None else 0.0)))
-            out.append(hits)
+                out = hits_from(*fetch(*self.scan(q, k, fused=False)), self.ids, self.count,
+                                off)
         return out
 
     # -- persistence ----------------------------------------------------------

@@ -45,16 +45,10 @@ import numpy as np
 import torch
 
 from ..log import get_logger
-from ..ops.fused_topk import (
-    fused_score_topk,
-    fused_score_topk_int4_rerank,
-    fused_score_topk_int8,
-    fused_score_topk_int8q,
-    np_quantize_rows_int4,
-)
+from ..ops.fused_topk import np_quantize_rows_int4
 from ..parallel.collectives import merge_topk_across
 from ..parallel.mesh import replicate, shard_layout
-from .flat import FlatIndex, _put, _search_plain
+from .flat import FlatIndex, FlatRows, _put, scan_rows
 
 logger = get_logger(__name__)
 
@@ -297,30 +291,17 @@ class ShardedFlatIndex:
 
     # -- search ---------------------------------------------------------------
 
-    def _shard_scan(self, s: int, q: torch.Tensor, kk: int, fused: bool, alive):
+    def _shard_scan(self, s: int, q: torch.Tensor, kk: int, fused: bool, masked: bool):
         """Shard s's top-kk: (vals, local row) [Q, kk], with the call
-        parameters of memex_tpu's `make_search_fn`. `alive` rides into a
-        fused scan only when the index has tombstones (None otherwise); the
-        plain scan masks it before its top-k. Launches only: no host sync."""
-        buf, count = self.bufs[s], self.counts[s]
-        scales = None if self.scales is None else self.scales[s]
-        if fused and self.dtype == "int4":
-            return fused_score_topk_int4_rerank(
-                buf, scales, self.buf8s[s], q, kk, count=count, alive=alive,
-                rerank=min(max(64, 2 * kk), 1024),
-                banks=max(1, min(8, min(32768, self.cap) // 128)),
-                deferred=q.shape[0] <= 64)  # memex_tpu's measured crossover
-        if fused and self.dtype == "int8" and self.query_quantize:
-            return fused_score_topk_int8q(buf, scales, q, kk, count=count, alive=alive,
-                                          banks=4)
-        if fused and self.dtype == "int8":
-            return fused_score_topk_int8(buf, scales, q, kk, count=count, alive=alive, banks=8)
-        if fused:
-            return fused_score_topk(buf, q, kk, count=count, alive=alive, banks=8)
-        # Plain scan: bf16 inputs, float32 accumulation, times the row
-        # scales; int4 scores from its int8 copy.
-        rows = self.buf8s[s] if self.dtype == "int4" else buf
-        return _search_plain(rows, scales, alive, count, q, kk)
+        parameters of memex_tpu's `make_search_fn` (fixed K2 and K3 banks,
+        the candidates left for the merge). The tombstone mask rides into a
+        fused scan only when `masked` (the index has tombstones); the plain
+        scan masks it before its top-k. Launches only: no host sync."""
+        rows = FlatRows(self.dtype, self.query_quantize, self.counts[s], self.bufs[s],
+                        None if self.scales is None else self.scales[s],
+                        None if self.buf8s is None else self.buf8s[s])
+        return scan_rows(rows, q, kk, alive=self.alive[s], masked=masked, fused=fused,
+                         block_n=min(32768, self.cap), kk=kk, fixed_banks=True, select=False)
 
     def _search_shards(self, queries: np.ndarray, k: int, fused: bool):
         """Every own shard's scan, then the merge on the lead device (across
@@ -338,8 +319,7 @@ class ShardedFlatIndex:
         q = replicate(torch.from_numpy(queries), [self.devices[s] for s in self.own])
         vals, gidx = [], []
         for j, s in enumerate(self.own):
-            alive = self.alive[s] if masked or not fused else None
-            v, i = self._shard_scan(s, q[j], kk, fused, alive)
+            v, i = self._shard_scan(s, q[j], kk, fused, masked)
             vals.append(v)
             gidx.append(i.long() + s * self.cap)
         return merge_topk_across(vals, gidx, k, self.lead, self.group)

@@ -69,6 +69,7 @@ import torch.nn.functional as F
 from ...metrics import METRICS
 from .model import (
     _DTYPES,
+    Family,
     _apply_rope,
     _embed_lookup,
     _mm,
@@ -542,3 +543,21 @@ def forward(cfg: DeepseekV2Config, params: dict, tokens: torch.Tensor,
     if logits_at is not None:
         x = x[:, logits_at:logits_at + 1] if isinstance(logits_at, int) else x[:, logits_at]
     return _mm(x.to(cdt), params["lm_head"], cdt).to(torch.float32), cache
+
+
+def _config(path: str, model: dict) -> DeepseekV2Config:
+    """Weights land in param_dtype as they are read (the float32 copy of a
+    15.7B model would not fit on the card); the compute dtype follows it."""
+    dtype = str(model.get("param_dtype", "bfloat16"))
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"deepseek_v2: param_dtype {dtype!r} is not supported "
+                         "(bfloat16 or float32)")
+    return DeepseekV2Config.from_model_dir(path, model.get("max_context"), dtype)
+
+
+def _load(path: str, cfg: DeepseekV2Config, model: dict, device, weights=None) -> dict:
+    return load_params(path, cfg, device=device, dtype=cfg.compute_dtype, tensors=weights)[1]
+
+
+DEEPSEEK_V2 = Family("deepseek_v2", _config, _load, init_params, forward, init_cache,
+                     head_at=True, takes_weights=True)

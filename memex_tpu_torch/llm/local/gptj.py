@@ -26,11 +26,14 @@ import torch.nn.functional as F
 
 from .model import (
     _DTYPES,
+    Family,
     _embed_lookup,
+    _kv_cache,
     _mm,
     _normal,
     attention_mask,
     cache_slots,
+    converting_loader,
     hf_tensor,
     layer_view,
     read_safetensors,
@@ -229,3 +232,8 @@ def forward(cfg: GptJConfig, params: dict, tokens: torch.Tensor,
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], cfg.ln_eps)
     logits = _mm(x.to(cdt), params["lm_head"], cdt) + params["lm_head_bias"]
     return logits.to(torch.float32), cache
+
+
+GPTJ = Family("gptj", lambda path, model: GptJConfig.from_model_dir(path),
+              converting_loader(load_params), init_params, forward, _kv_cache,
+              tiny=GptJConfig.tiny)

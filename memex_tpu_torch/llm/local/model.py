@@ -31,6 +31,7 @@ import json
 import math
 import os
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
+    model_family: str = "llama"
 
     @property
     def head_dim(self) -> int:
@@ -342,7 +344,7 @@ def _kv_cache(cfg, batch: int = 1, device="cuda") -> dict:
 def init_cache(cfg, batch: int = 1, device="cuda") -> dict:
     """The family's cache: [L, B, max_context, n_kv, hd] bf16 K and V for
     Llama and GPT-J, the latent cache for DeepSeek-V2."""
-    return _family(cfg)[1](cfg, batch=batch, device=device)
+    return family_of(cfg).init_cache(cfg, batch=batch, device=device)
 
 
 def cache_slots(cache_len, T: int, C: int, device) -> torch.Tensor:
@@ -503,20 +505,41 @@ def sample_token(logits: torch.Tensor, recent: torch.Tensor, sc: SamplerConfig,
 # ---------------------------------------------------------------------------
 
 
-def _family(cfg):
-    """(forward, init_cache, whether forward takes `logits_at`) of the
-    config's family: Llama here, GPT-J in gptj.py, DeepSeek-V2 in
-    deepseek_v2.py."""
-    name = getattr(cfg, "model_family", "llama")
-    if name == "gptj":
-        from .gptj import forward as gptj_forward
+@dataclass(frozen=True)
+class Family:
+    """What the runtime needs of one decoder family. Each family module
+    exports one; families.FAMILIES holds them under the name that
+    `cfg.model_family` and the TOML `[model] type` both use."""
 
-        return gptj_forward, _kv_cache, False
-    if name == "deepseek_v2":
-        from . import deepseek_v2
+    name: str
+    config: Callable      # (model dir, TOML [model] table) -> config
+    load: Callable        # (model dir, config, [model] table, device, weights) -> params
+    init_params: Callable  # (config, seed=, device=) -> params drawn from the seed
+    forward: Callable     # (cfg, params, tokens, positions, cache, cache_len) -> (logits, cache)
+    init_cache: Callable  # (cfg, batch=, device=) -> cache
+    head_at: bool = False  # forward takes `logits_at` and computes the head there alone
+    takes_weights: bool = False  # load reads `weights`, the tensors already in memory
+    tiny: Callable | None = None  # vocab size -> a hermetic config; None: no tiny fallback
 
-        return deepseek_v2.forward, deepseek_v2.init_cache, True
-    return forward, _kv_cache, False
+
+def family_of(cfg) -> Family:
+    from .families import FAMILIES  # the family modules import this one
+
+    return FAMILIES[cfg.model_family]
+
+
+def converting_loader(load_float32) -> Callable:
+    """A Family.load over `load_float32(dir, cfg, device=) -> (cfg, params)`
+    that converts the weights to the TOML's param_dtype (convert_params)."""
+    def load(path: str, cfg, model: dict, device, weights=None) -> dict:
+        params = load_float32(path, cfg, device=device)[1]
+        return convert_params(params, str(model.get("param_dtype", "bfloat16")))
+    return load
+
+
+LLAMA = Family("llama", lambda path, model: LlamaConfig.from_model_dir(path),
+               converting_loader(load_params), init_params, forward, _kv_cache,
+               tiny=LlamaConfig.tiny)
 
 
 def model_forward(cfg, params: dict, tokens, positions, cache, cache_len,
@@ -526,10 +549,10 @@ def model_forward(cfg, params: dict, tokens, positions, cache, cache_len,
     of that row only ([B, 1, V]), or of a 1-D tensor of R rows ([B, R, V]):
     DeepSeek-V2 computes the head there alone, the others slice their full
     logits."""
-    fwd, _, head_at = _family(cfg)
-    if head_at:
-        return fwd(cfg, params, tokens, positions, cache, cache_len, logits_at=logits_at)
-    logits, cache = fwd(cfg, params, tokens, positions, cache, cache_len)
+    fam = family_of(cfg)
+    if fam.head_at:
+        return fam.forward(cfg, params, tokens, positions, cache, cache_len, logits_at=logits_at)
+    logits, cache = fam.forward(cfg, params, tokens, positions, cache, cache_len)
     if isinstance(logits_at, int):
         logits = logits[:, logits_at:logits_at + 1]
     elif logits_at is not None:

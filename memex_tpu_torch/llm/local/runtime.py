@@ -30,16 +30,8 @@ from ...log import get_logger
 from ...metrics import METRICS
 from ...text.segment import count_tokens
 from ..base import ChatMessage, budget_segment, budget_truncate
-from .model import (
-    LlamaConfig,
-    SamplerConfig,
-    convert_params,
-    decode_chunk,
-    generate,
-    init_params,
-    load_params,
-    prefill,
-)
+from .families import FAMILIES
+from .model import LlamaConfig, SamplerConfig, decode_chunk, generate, prefill
 
 logger = get_logger(__name__)
 
@@ -180,21 +172,24 @@ class LocalLLM:
             with open(os.path.join(path, "config.json"), encoding="utf-8") as fh:
                 family = json.load(fh).get("model_type")
         family = str(family or "llama").lower()  # reference schema.rs:20-34
-        if family not in _FAMILIES:
+        fam = FAMILIES.get(family)
+        if fam is None:
             raise ValueError(f"unknown local LLM family {family!r} in {toml_path}; "
-                             f"known: {sorted(_FAMILIES)}")
-        if weights is not None and family != "deepseek_v2":
-            raise ValueError(f"weights= is for deepseek_v2, not {family!r}")
+                             f"known: {sorted(FAMILIES)}")
+        if weights is not None and not fam.takes_weights:
+            takes = ", ".join(sorted(n for n, f in FAMILIES.items() if f.takes_weights))
+            raise ValueError(f"weights= is for {takes}, not {family!r}")
         if not have_dir:
-            if family == "deepseek_v2":
-                raise ValueError(f"deepseek_v2 needs a model directory with config.json; "
+            if fam.tiny is None:
+                raise ValueError(f"{family} needs a model directory with config.json; "
                                  f"{path!r} is none")
             if path not in ("tiny", "tiny-gptj"):
                 logger.warning("model dir %s missing; using tiny hermetic model", path)
-            if family == "gptj" or path == "tiny-gptj":
+            if path == "tiny-gptj":
                 return cls.tiny_gptj(sampler=sampler, model_name=name, device=device)
-            return cls.tiny(sampler=sampler, model_name=name, device=device)
-        cfg, params = _FAMILIES[family](path, model, device, weights)
+            return cls.tiny(sampler=sampler, model_name=name, device=device, family=family)
+        cfg = fam.config(path, model)
+        params = fam.load(path, cfg, model, device, weights)
         tokenizer = (
             HFTokenizer(path)
             if os.path.exists(os.path.join(path, "tokenizer.json"))
@@ -205,19 +200,19 @@ class LocalLLM:
 
     @classmethod
     def tiny(cls, sampler: SamplerConfig | None = None, seed: int = 0,
-             model_name: str = "tiny-llama", device="cuda") -> "LocalLLM":
-        cfg = LlamaConfig.tiny(vocab_size=ByteTokenizer.vocab_size)
-        return cls(cfg, init_params(cfg, seed=seed, device=device), ByteTokenizer(), sampler,
-                   model_name=model_name, seed=seed, device=device)
+             model_name: str | None = None, device="cuda", family: str = "llama") -> "LocalLLM":
+        """The family's hermetic model (seeded weights, byte tokenizer),
+        named tiny-<family> unless model_name says otherwise."""
+        fam = FAMILIES[family]
+        cfg = fam.tiny(vocab_size=ByteTokenizer.vocab_size)
+        name = f"tiny-{family}" if model_name is None else model_name
+        return cls(cfg, fam.init_params(cfg, seed=seed, device=device), ByteTokenizer(), sampler,
+                   model_name=name, seed=seed, device=device)
 
     @classmethod
     def tiny_gptj(cls, sampler: SamplerConfig | None = None, seed: int = 0,
                   model_name: str = "tiny-gptj", device="cuda") -> "LocalLLM":
-        from .gptj import GptJConfig, init_params as gptj_init
-
-        cfg = GptJConfig.tiny(vocab_size=ByteTokenizer.vocab_size)
-        return cls(cfg, gptj_init(cfg, seed=seed, device=device), ByteTokenizer(), sampler,
-                   model_name=model_name, seed=seed, device=device)
+        return cls.tiny(sampler, seed, model_name, device, family="gptj")
 
     # -- LLM protocol ------------------------------------------------------------
 
@@ -356,36 +351,3 @@ class LocalLLM:
 
     def truncate_text(self, text: str) -> tuple[str, str]:
         return budget_truncate(text, self.max_tokens), self._model_name
-
-
-# -- families ------------------------------------------------------------------
-
-
-def _load_llama(path: str, model: dict, device, weights=None) -> tuple:
-    cfg, params = load_params(path, device=device)
-    return cfg, convert_params(params, str(model.get("param_dtype", "bfloat16")))
-
-
-def _load_gptj(path: str, model: dict, device, weights=None) -> tuple:
-    from .gptj import load_params as gptj_load
-
-    cfg, params = gptj_load(path, device=device)
-    return cfg, convert_params(params, str(model.get("param_dtype", "bfloat16")))
-
-
-def _load_deepseek_v2(path: str, model: dict, device, weights=None) -> tuple:
-    """Weights land in param_dtype as they are read (the float32
-    copy of a 15.7B model would not fit on the card); the compute dtype
-    follows it."""
-    from . import deepseek_v2 as ds
-
-    dtype = str(model.get("param_dtype", "bfloat16"))
-    if dtype not in ("bfloat16", "float32"):
-        raise ValueError(f"deepseek_v2: param_dtype {dtype!r} is not supported "
-                         "(bfloat16 or float32)")
-    cfg = ds.DeepseekV2Config.from_model_dir(path, model.get("max_context"), dtype)
-    return ds.load_params(path, cfg, device=device, dtype=dtype, tensors=weights)
-
-
-# model family -> (model dir, TOML [model] table, device, weights) -> (cfg, params)
-_FAMILIES = {"llama": _load_llama, "gptj": _load_gptj, "deepseek_v2": _load_deepseek_v2}

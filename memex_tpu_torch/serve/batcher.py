@@ -1,22 +1,20 @@
 """Request microbatching with a dispatch/complete pipeline.
 
-TPU throughput comes from batch: one encode+scan over Q=32 queries costs
-barely more than Q=1 (the corpus read dominates). The batcher collects
+One encode+scan over Q queries costs little more than over one: on the
+H100 a search batch's cost is the host's launch of its ~200 kernels
+(6.7-11 ms for 1.4-1.5 queries; PERF.md section 5). The batcher collects
 concurrent requests for up to `max_wait_ms` (or until `max_batch`) and
-executes them as one device call — queries to the same collection share a
+executes them as one device call; queries to the same collection share a
 single fused-kernel scan.
 
-Pipelining (r5): with a remote TPU every winner-fetch is a ~30ms RPC.
-A serial collect→dispatch→fetch loop leaves the device idle during the
-fetch AND caps batch rate at 1/RPC; the two-stage mode
-(`run_batch_async`) dispatches batch N+1 while batch N's fetch is in
-flight, and a small completion pool overlaps the fetch RPCs themselves
+Pipelining: `run_batch_async` splits a batch into a dispatch, which
+queues the device work and returns, and a `finish`, which waits for the
+winners' copy and builds the results on a completer thread. The
+collecting thread launches batch N+1 while batch N is copied back
 (device execution is in-order, so results stay correct; per-client
-ordering holds because each client blocks on its own future). Measured
-on the 1M serve stage: 58.6 QPS (r4, serial + unwarmed buckets) → 1364
-(pipelined, serial completer) → ~1x of the serial device-capability
-yardstick with the pool. In-flight batches are semaphore-bounded so a
-slow device backpressures collection instead of queueing unbounded.
+ordering holds because each client blocks on its own future). In-flight
+batches are semaphore-bounded so a slow device backpressures collection
+instead of queueing unbounded.
 
 Latency math: +max_wait_ms p50 cost buys ~Qx throughput under load; with
 no concurrency the queue drains immediately after one wait window.
@@ -39,6 +37,12 @@ from .query_path import _Q_BUCKETS, FusedQueryPath, _bucket
 
 logger = get_logger(__name__)
 
+# Pipelined batches in flight, and the threads that complete them.
+# Completion is short on the card (the winners' copy, query.fetch, reads
+# 0.24-0.3 ms a batch; PERF.md section 5), so two threads keep up.
+_PIPELINE_DEPTH = 3
+_COMPLETER_THREADS = 2
+
 
 @dataclass
 class _Pending:
@@ -56,8 +60,7 @@ class Microbatcher:
     def __init__(self, run_batch: Callable[[list], list] | None = None,
                  max_batch: int = 32, max_wait_ms: float = 3.0,
                  name: str = "batch",
-                 run_batch_async: Callable[[list], Callable[[], list]] | None = None,
-                 pipeline_depth: int = 3, completer_threads: int = 2):
+                 run_batch_async: Callable[[list], Callable[[], list]] | None = None):
         assert (run_batch is None) != (run_batch_async is None), \
             "exactly one of run_batch / run_batch_async"
         self.run_batch = run_batch
@@ -74,16 +77,9 @@ class Microbatcher:
         if run_batch_async is not None:
             from concurrent.futures import ThreadPoolExecutor
 
-            # Completion = one blocking winner-fetch RPC (~30ms) per
-            # batch; a single completer caps batch rate at 1/RPC no
-            # matter how fast dispatch is. Two fetch threads overlap the
-            # RPC latency windows (the payloads are KB-scale, so tunnel
-            # bandwidth is not the contended resource); the semaphore
-            # bounds total in-flight batches so a slow device
-            # backpressures collection instead of queueing unbounded.
-            self._sem = threading.Semaphore(pipeline_depth)
+            self._sem = threading.Semaphore(_PIPELINE_DEPTH)
             self._pool = ThreadPoolExecutor(
-                max_workers=completer_threads,
+                max_workers=_COMPLETER_THREADS,
                 thread_name_prefix=f"memex-{name}-complete")
         self._thread = threading.Thread(target=self._loop, name=f"memex-{name}", daemon=True)
         self._thread.start()

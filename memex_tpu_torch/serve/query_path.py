@@ -16,23 +16,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..log import get_logger
 
-from ..embed.engine import seq_bucket
-from ..index.flat import (
-    FlatIndex,
-    _exact_flat_rerank,
-    _int4_deferred,
-    _int4_rerank_depth,
-    _search_masked_fused,
-    _search_masked_fused_int4,
-    _search_masked_fused_int8,
-    _search_plain,
-    _search_rerank_fused,
-)
+from ..embed.engine import pad_rows, seq_bucket
+from ..index.flat import FlatIndex, hits_from
 from ..metrics import METRICS
 from ..ops.host import fetch
 
@@ -49,57 +38,6 @@ def _bucket(n, buckets):
     return buckets[-1]
 
 
-def _encode_and_search(engine, ids: np.ndarray, mask: np.ndarray, index: FlatIndex,
-                       count: int, mean, *, k: int, k_ret: int, use_fused: bool,
-                       block_n: int, exact: bool):
-    """Encoder forward + the branch structure of FlatIndex.search, on the
-    device. As memex_tpu's serve path does, this always passes
-    `index.alive` into the scan, keeps the scan's default 128-wide
-    candidate list (kk) on the non-rerank branches, and picks int4's
-    unpack from the bucketed batch size (deferred for B <= 64);
-    FlatIndex.search passes alive only when rows are dead."""
-    queries = engine.encode_ids(ids, mask)  # unit vectors on the device
-    B = ids.shape[0]
-    dtype = index.dtype
-    kk = min(max(4 * k, k_ret), 128)
-    with torch.inference_mode():
-        if use_fused and k_ret > k:
-            if dtype == "int4":
-                kk_arg, deferred = _int4_rerank_depth(k_ret), _int4_deferred(B)
-            else:
-                kk_arg, deferred = kk, False
-            vals, rows = _search_rerank_fused(
-                index.buf, index.scales, index.buf8, index.rbuf, index.rbuf_scales,
-                index.alive, count, queries, k, k_ret, kk_arg, block_n,
-                index.query_quantize, deferred, dtype, exact)
-        elif use_fused and dtype == "int4":
-            vals, rows = _search_masked_fused_int4(
-                index.buf, index.scales, index.buf8, index.alive, count, queries, k,
-                block_n=block_n, rerank=_int4_rerank_depth(k), deferred=_int4_deferred(B))
-        elif use_fused and dtype == "int8":
-            vals, rows = _search_masked_fused_int8(
-                index.buf, index.scales, index.alive, count, queries, k, block_n=block_n,
-                qquant=index.query_quantize)
-        elif use_fused:
-            vals, rows = _search_masked_fused(index.buf, index.alive, count, queries, k,
-                                              exact=exact, keep2=exact)
-        else:
-            # Plain path: int4 scores from its int8 copy; the rerank runs as
-            # a second stage, like FlatIndex.search's.
-            src = index.buf8 if dtype == "int4" else index.buf
-            vals, rows = _search_plain(src, index.scales, index.alive, count, queries, k_ret,
-                                       exact=exact)
-            if k_ret > k:
-                vals, rows = _exact_flat_rerank(src, index.scales, queries, vals, rows, k,
-                                                rbuf=index.rbuf,
-                                                rbuf_scales=index.rbuf_scales)
-        if mean is not None:
-            # Centred storage: restore true cosines with the query-constant
-            # q . mean (rank-safe after the rerank too).
-            vals = vals + (queries @ mean)[:, None]
-    return vals, rows
-
-
 @dataclass
 class _Dispatched:
     """An in-flight fused query batch: device work is queued, the winners
@@ -112,13 +50,8 @@ class _Dispatched:
         for vals_d, rows_d, ids_snapshot, count, n_texts, k in self.parts:
             with METRICS.span("query.fetch"):
                 vals, rows = fetch(vals_d, rows_d)  # one wait for the pair
-            for qi in range(n_texts):
-                hits = []
-                for v, r in zip(vals[qi], rows[qi]):
-                    if v <= -1e29 or r >= count:
-                        continue
-                    hits.append((ids_snapshot[r], float(v)))
-                out.append(hits[:k])
+            hits = hits_from(vals[:n_texts], rows[:n_texts], ids_snapshot, count)
+            out.extend(h[:k] for h in hits)
         return out
 
 
@@ -151,13 +84,7 @@ class FusedQueryPath:
             encoded = [tok.encode(t, add_special_tokens=True)[: self.engine.max_seq_length]
                        for t in texts]
             L = seq_bucket(max(len(e) for e in encoded), self.engine.max_seq_length)
-            B = _bucket(len(texts), _Q_BUCKETS)
-            ids = np.full((B, L), tok.pad_id, np.int32)
-            mask = np.zeros((B, L), np.int32)
-            for i, e in enumerate(encoded):
-                ids[i, : len(e)] = e
-                mask[i, : len(e)] = 1
-            mask[len(texts):, 0] = 1  # pad rows: avoid 0/0 pooling
+            ids, mask = pad_rows(encoded, L, tok.pad_id, _bucket(len(texts), _Q_BUCKETS))
 
         # The lock is held through the launch: a concurrent add() writes
         # rows in place or swaps a grown buffer, and a compact() renumbers
@@ -170,21 +97,27 @@ class FusedQueryPath:
             with METRICS.span("query.launch"):
                 count = index.count
                 ids_snapshot = index.ids  # replaced (not mutated) by compaction
-                vals, rows = self._dispatch_device(index, ids, mask, k, count)
+                vals, rows = self._dispatch_device(index, ids, mask, k)
         finally:
             store._lock.release()
         return _Dispatched([(vals, rows, ids_snapshot, count, len(texts), k)])
 
-    def _dispatch_device(self, index: FlatIndex, ids, mask, k: int, count: int):
-        """The device call itself; the caller holds the store lock. Mirrors
-        FlatIndex.search's operating-point math (k_ret, use_fused)."""
-        k_eff = min(_bucket(k, _K_BUCKETS), count)
-        rer = index.rerank or 0
-        k_ret = min(max(k_eff, rer), count) if rer else k_eff
-        return _encode_and_search(
-            self.engine, ids, mask, index, count, _mean_dev(index), k=k_eff,
-            k_ret=k_ret, use_fused=index.use_fused and k_ret <= 128,
-            block_n=index.scan_block_n(), exact=index.scan_precision == "highest")
+    def _dispatch_device(self, index: FlatIndex, ids, mask, k: int):
+        """Encoder forward, the index's scan at the bucketed k, and the
+        q . mean restore, all on the device; the caller holds the store
+        lock. As memex_tpu's serve path does, alive always rides into the
+        scan, and a scan without rerank keeps the bank's full 128-wide
+        candidate list."""
+        mean = index.device_mean()
+        queries = self.engine.encode_ids(ids, mask)  # unit vectors on the device
+        with torch.inference_mode():
+            vals, rows = index.scan(queries, _bucket(k, _K_BUCKETS), mask_alive=True,
+                                    candidates=128)
+            if mean is not None:
+                # Centred storage: restore true cosines with the
+                # query-constant q . mean (rank-safe after the rerank too).
+                vals = vals + (queries @ mean)[:, None]
+        return vals, rows
 
     def warmup(self, store, k: int = 10, seq_lens: tuple[int, ...] = (32,),
                q_buckets: tuple[int, ...] | None = None) -> int:
@@ -194,32 +127,16 @@ class FusedQueryPath:
         if not self.supports(store):
             return 0
         index: FlatIndex = store.index
-        tok = self.engine.tokenizer
-        count = index.count
+        pad_id = self.engine.tokenizer.pad_id
         n = 0
         for L in seq_lens:
             for B in (q_buckets or _Q_BUCKETS):
-                ids = np.full((B, L), tok.pad_id, np.int32)
-                mask = np.zeros((B, L), np.int32)
-                mask[:, 0] = 1
+                ids, mask = pad_rows([], L, pad_id, B)
                 with store._lock:
-                    self._dispatch_device(index, ids, mask, k, count)
+                    self._dispatch_device(index, ids, mask, k)
                 n += 1
         if index.device.type == "cuda":
             torch.cuda.synchronize(index.device)
         logger.info("fused query path warm: %d shapes", n)
         return n
-
-
-def _mean_dev(index: FlatIndex):
-    """Device copy of the centring mean, cached per pinned mean."""
-    mean = index.mean
-    if mean is None or not mean.any():
-        return None
-    cached = getattr(index, "_mean_dev_cache", None)
-    if cached is not None and cached[0] is mean:
-        return cached[1]
-    dev = torch.from_numpy(mean).to(index.device)
-    index._mean_dev_cache = (mean, dev)
-    return dev
 

@@ -190,19 +190,21 @@ def _rank_main(coordinator: str, rank: int, out_dir: str, device: str) -> None:
     torch.set_num_threads(1)
     import torch.distributed as dist
 
+    import memex_tpu_torch.index.flat as tflat
     import memex_tpu_torch.index.sharded as tsflat
     import memex_tpu_torch.index.sharded_ivf as tsivf
     from memex_tpu_torch.ops import fused_topk as ft
     from memex_tpu_torch.parallel import init_multihost
 
-    # Calls of each scan wrapper from the sharded index (on the CPU a
-    # wrapper runs its kernel's plain version, and launches nothing).
+    # Calls of each scan wrapper from the sharded index, whose shard scan
+    # is flat.scan_rows (on the CPU a wrapper runs its kernel's plain
+    # version, and launches nothing).
     calls: dict[str, int] = {}
     for name in sorted(set(WRAPPERS.values())):
-        def counted(*a, _f=getattr(tsflat, name), _n=name, **kw):
+        def counted(*a, _f=getattr(tflat, name), _n=name, **kw):
             calls[_n] = calls.get(_n, 0) + 1
             return _f(*a, **kw)
-        setattr(tsflat, name, counted)
+        setattr(tflat, name, counted)
 
     res: dict = {"noop": init_multihost(), "dir": out_dir}  # no MEMEX_COORDINATOR here
     assert init_multihost(coordinator, 2, rank, device=device)

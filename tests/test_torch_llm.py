@@ -414,6 +414,39 @@ def test_from_config_tiny_and_missing_dir(tmp_path):
     assert gone.cfg == tm.LlamaConfig.tiny(vocab_size=258)
 
 
+def test_a_family_registered_in_the_table_is_reached_with_no_other_edit(tmp_path, monkeypatch):
+    """One FAMILIES entry is all a new family needs: the tiny Llama under
+    another name is picked by the TOML `type`, built from its own tiny
+    config, and driven by model_forward and init_cache through its own
+    record, with the tiny Llama's text."""
+    from memex_tpu_torch.llm.local import families
+
+    calls = {"forward": 0, "init_cache": 0}
+
+    def forward(*a, **kw):
+        calls["forward"] += 1
+        return tm.forward(*a, **kw)
+
+    def init_cache(*a, **kw):
+        calls["init_cache"] += 1
+        return tm.LLAMA.init_cache(*a, **kw)
+
+    def tiny(vocab_size):
+        return dataclasses.replace(tm.LlamaConfig.tiny(vocab_size), model_family="llama-again")
+
+    monkeypatch.setitem(families.FAMILIES, "llama-again", dataclasses.replace(
+        tm.LLAMA, name="llama-again", forward=forward, init_cache=init_cache, tiny=tiny))
+    toml = write_toml(tmp_path, '[model]\npath = "tiny"\ntype = "llama-again"\n'
+                                '[sampler]\ntemperature = 0.0\n')
+    llm = trt.LocalLLM.from_config(toml, device=CPU)
+    assert llm.cfg.model_family == "llama-again"
+    m = [ChatMessage(ChatRole.User, "x")]
+    text = llm.chat_completion("m", m, max_new=4)
+    assert calls["forward"] == 5 and calls["init_cache"] == 1  # prefill + 4 steps
+    ref = trt.LocalLLM.tiny(trt.SamplerConfig(temperature=0.0), device=CPU)
+    assert text == ref.chat_completion("m", m, max_new=4)
+
+
 def hf_llama_dir(path, transformers):
     """A seeded 2-layer HF llama checkpoint over a 258-token vocab."""
     hcfg = transformers.LlamaConfig(vocab_size=258, hidden_size=64, intermediate_size=128,

@@ -152,26 +152,45 @@ def test_http_ivf_store_matches_jax(tmp_path, model_dir):
     assert store.on_maintenance == rt._enqueue_maintenance
 
 
-def test_fused_query_path_int4_shift_matches_jax(model_dir, monkeypatch):
-    """The port's FusedQueryPath on an int4 store at a batch that buckets
-    above 64 (int4's shift unpack), against memex_tpu's FlatIndex.search
-    (Pallas in interpret mode, also shift mode above Q = 64) on the same
-    query vectors."""
+# (dtype, index options, texts searched, int4's unpack: deferred at a batch
+# that buckets to 64 or fewer, shift above)
+_TIERS = {
+    "float32": ("float32", {}, 10, None),
+    "bfloat16": ("bfloat16", {}, 10, None),
+    "int8q": ("int8", {}, 10, None),
+    "int8-bf16-queries": ("int8", {"query_quantize": False}, 10, None),
+    "int8-refine": ("int8", {"refine": True}, 10, None),
+    "int4-deferred": ("int4", {}, 10, True),
+    "int4-shift": ("int4", {}, 70, False),
+    "float32-highest": ("float32", {"scan_precision": "highest"}, 10, None),
+}
+
+
+@pytest.mark.parametrize("tier", list(_TIERS))
+def test_fused_query_path_matches_jax(model_dir, monkeypatch, tier):
+    """The port's FusedQueryPath on each flat tier against memex_tpu's
+    FlatIndex.search (Pallas in interpret mode) on the same query vectors:
+    the same ids and scores, through the index's own kernel choice
+    (flat.scan_rows). int4 picks its unpack from the bucketed batch (128
+    for 70 texts: shift, as memex_tpu above Q = 64)."""
     from memex_tpu.index.flat import FlatIndex as JaxFlat
     from memex_tpu_torch.embed import EmbeddingEngine
+    from memex_tpu_torch.index import flat
     from memex_tpu_torch.ops import fused_topk as ft
     from memex_tpu_torch.serve import query_path
+    from memex_tpu_torch.serve.query_path import _Q_BUCKETS, _bucket
     from memex_tpu_torch.store.flat_store import TpuFlatStore
 
+    dtype, kw, n_texts, deferred = _TIERS[tier]
     engine = EmbeddingEngine(model_dir, device="cpu")
     docs = _docs(2, 300)
     vecs = engine.encode_batch(docs)
-    store = TpuFlatStore(None, "c", dim=DIM, dtype="int4", use_fused=True, device="cpu")
+    store = TpuFlatStore(None, "c", dim=DIM, dtype=dtype, use_fused=True, device="cpu", **kw)
     store.index.add(vecs, [f"d{i}" for i in range(len(docs))])
-    jx = JaxFlat(DIM, dtype="int4", use_fused=True)
+    jx = JaxFlat(DIM, dtype=dtype, use_fused=True, **kw)
     jx._interpret = True
     jx.add(vecs, [f"d{i}" for i in range(len(docs))])
-    texts = docs[:70]
+    texts = docs[:n_texts]
     seen = {}
     encode, bank = engine.encode_ids, ft.int4q_candidates
 
@@ -183,15 +202,61 @@ def test_fused_query_path_int4_shift_matches_jax(model_dir, monkeypatch):
         seen["deferred"] = kw["deferred"]
         return bank(*args, **kw)
 
+    def capture_scan(rows, *args, **kw):
+        seen.setdefault("scans", []).append(rows.dtype)
+        return scan_rows(rows, *args, **kw)
+
+    scan_rows = flat.scan_rows
     monkeypatch.setattr(engine, "encode_ids", capture_encode)
     monkeypatch.setattr(ft, "int4q_candidates", capture_bank)
+    monkeypatch.setattr(flat, "scan_rows", capture_scan)
     got = query_path.FusedQueryPath(engine).search_texts(store, texts, 10)
-    assert seen["deferred"] is False and seen["queries"].shape[0] == 128
+    assert seen["scans"] == [dtype] and seen.get("deferred") is deferred
+    assert seen["queries"].shape[0] == _bucket(n_texts, _Q_BUCKETS)
     ref = jx.search(seen["queries"][: len(texts)].numpy(), 10)
     for r, g in zip(ref, got, strict=True):
         assert [sid for sid, _ in g] == [sid for sid, _ in r]
         np.testing.assert_allclose([v for _, v in g], [v for _, v in r], rtol=0, atol=2e-5)
     assert all(g[0][0] == f"d{i}" for i, g in enumerate(got))
+
+
+def test_every_flat_tier_takes_int4s_unpack_from_the_one_rule(model_dir, monkeypatch):
+    """flat._int4_deferred is the one int4 unpack rule: patched, it reaches
+    the int4 scan of FlatIndex.search, of the serve path and of the
+    sharded index."""
+    from memex_tpu_torch.embed import EmbeddingEngine
+    from memex_tpu_torch.index import flat
+    from memex_tpu_torch.index.sharded import ShardedFlatIndex
+    from memex_tpu_torch.ops import fused_topk as ft
+    from memex_tpu_torch.serve.query_path import FusedQueryPath
+    from memex_tpu_torch.store.flat_store import TpuFlatStore
+
+    engine = EmbeddingEngine(model_dir, device="cpu")
+    docs = _docs(3, 64)
+    vecs = engine.encode_batch(docs)
+    ids = [f"d{i}" for i in range(len(docs))]
+    store = TpuFlatStore(None, "c", dim=DIM, dtype="int4", use_fused=True, device="cpu")
+    store.index.add(vecs, ids)
+    sharded = ShardedFlatIndex(DIM, ["cpu", "cpu"], dtype="int4", use_fused=True)
+    sharded.add(vecs, ids)
+    asked, handed = [], []
+    bank = ft.int4q_candidates
+
+    def flipped(q_n):  # the opposite of memex_tpu's rule, so it shows where it lands
+        asked.append(q_n)
+        return q_n > 64
+
+    def capture_bank(*args, **kw):
+        handed.append(kw["deferred"])
+        return bank(*args, **kw)
+
+    monkeypatch.setattr(flat, "_int4_deferred", flipped)
+    monkeypatch.setattr(ft, "int4q_candidates", capture_bank)
+    store.index.search(vecs[:3], 5)
+    FusedQueryPath(engine).search_texts(store, docs[:3], 5)
+    sharded.search(vecs[:3], 5)
+    # Q = 3 searched as 3 rows, the serve path's bucket of 8, and 3 on each shard
+    assert asked == [3, 8, 3, 3] and handed == [False] * 4
 
 
 _ALONE = textwrap.dedent("""
